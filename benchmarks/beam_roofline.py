@@ -1,13 +1,13 @@
-"""Beam-search serving-step roofline (VERDICT r4 item 8).
+"""Beam-search serving-step components.
 
-The driver bench's streaming row shows beam=4 at ~810 µs/chunk vs greedy
-~440 at 128 streams — this harness attributes the 2x: it times the
+This harness attributes the cost of beam=4 over greedy in the streaming
+step: it times the
 beam frame-step's components at the EXACT serving shapes (B=128, H=4,
 d_joiner=512, C=500, 8 encoder frames per 320 ms chunk), plus candidate
 variants for anything that looks structural (two-stage top-k, merge
-ablation), with the same slope-timing protocol as every other harness.
+ablation), each on the host clock around ``block_until_ready``.
 
-Run on the TPU:  python benchmarks/beam_roofline.py
+Run on the GPU:  python benchmarks/beam_roofline.py
 Prints one JSON line per measurement.
 """
 
@@ -25,7 +25,7 @@ import numpy as np
 from fast_rnnt_tpu.models import StreamingConfig, TransducerConfig, init_model
 from fast_rnnt_tpu.models.decoding import _predictor_last
 from fast_rnnt_tpu.models.transducer import PrunedTransducer
-from fast_rnnt_tpu.utils.profiling import benchmark_on_device
+from fast_rnnt_tpu.utils.profiling import benchmark_fn
 
 B, H, CHUNK = 128, 4, 32
 FRAMES = CHUNK // 4  # encoder frames per chunk step
@@ -50,7 +50,7 @@ def main():
     rows = []
 
     def emit(name, fn, *args, scale=FRAMES):
-        dt = benchmark_on_device(fn, *args, iters=100, trials=3)
+        dt = benchmark_fn(jax.jit(fn), *args, iters=100)
         rows.append((name, dt))
         print(json.dumps({
             "component": name, "us_per_call": round(dt * 1e6, 2),

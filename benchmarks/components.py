@@ -1,178 +1,206 @@
-"""Component-level TPU timings for the fused pruned pipeline.
+"""Where the pruned training step spends its time on one GPU, for the
+recursion kernels (impl="cuda") and the XLA scan core (impl="xla").
 
-Run on the TPU (leave JAX_PLATFORMS unset):  python benchmarks/components.py
-Prints one JSON line per component (slope-timed; see utils/profiling.py).
+    python benchmarks/components.py [--out chiprun_out/components.json]
 
-Optional args: ``python benchmarks/components.py [B] [bf16]`` — override
-the batch size (the B-scaling investigation) and/or run the production
-bf16 mixed-precision mode.
+1. The full step (bench.py's workload: B=30, T=1000, S=100, C=500,
+   s_range=5) timed in turns xla, cuda, cuda, xla, fp32 and bf16.
+2. Each stage alone, jitted: lattice build (forward, forward+VJP),
+   stage-1 recursion with occupancies, prune ranges, stage-2 banded
+   recursion (forward, forward+VJP).
+3. A profiler trace of one full step per impl (fp32, and bf16 with the
+   kernels), reduced to device time per
+   named scope of ``rnnt_loss_simple_pruned`` (lattice_build,
+   stage1_recursion, prune_ranges, stage2_recursion; "other" is what lies
+   outside them), with kernel counts and the busiest ops.
+
+Times are the host clock around ``block_until_ready``; trace times are
+the device durations of the kernels.  The card's name and power limit are
+printed with the results.
 """
 
-import os as _os
-import sys as _sys
-
-_sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
-
+import argparse
+import glob
 import json
+import os
+import re
 import sys
+import tempfile
+import time
 
-import jax
-import jax.numpy as jnp
-import numpy as np
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import fast_rnnt_tpu as frt
-from fast_rnnt_tpu.ops import lattice, recursion
-from fast_rnnt_tpu.utils.profiling import benchmark_on_device, compiled_memory_mb
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
 
-B, T, S, C = 30, 1000, 100, 500
-S_RANGE = 5
-BF16 = "bf16" in sys.argv[1:]
-for _a in sys.argv[1:]:
-    if _a.isdigit():
-        B = int(_a)
+import fast_rnnt_tpu as frt  # noqa: E402
+from bench import B, C, S, S_RANGE, T, make_inputs, step_fn  # noqa: E402
+from fast_rnnt_tpu.ops import lattice  # noqa: E402
+from fast_rnnt_tpu.utils.profiling import (  # noqa: E402
+    benchmark_fn,
+    gpu_identity,
+    require_gpu,
+    setup_compile_cache,
+)
 
-
-def make_inputs(seed=0):
-    rng = np.random.default_rng(seed)
-    am = jnp.asarray(rng.normal(size=(B, T, C)).astype(np.float32))
-    lm = jnp.asarray(rng.normal(size=(B, S + 1, C)).astype(np.float32))
-    symbols = jnp.asarray(rng.integers(1, C, size=(B, S)).astype(np.int32))
-    t_end = np.clip(rng.integers(T // 2, T + 1, size=B), S + 2, T).astype(np.int32)
-    s_end = np.clip(rng.integers(S // 2, S + 1, size=B), 2, S).astype(np.int32)
-    boundary = jnp.asarray(
-        np.stack([np.zeros(B, np.int32), np.zeros(B, np.int32), s_end, t_end], axis=1)
-    )
-    return am, lm, symbols, boundary
+SCOPES = ("lattice_build", "stage1_recursion", "prune_ranges",
+          "stage2_recursion")
+IMPLS = ("xla", "cuda")
 
 
-def report(name, fn, *args, mem=False):
-    t = benchmark_on_device(fn, *args, iters=20, trials=3)
-    row = {"component": name, "us": round(t * 1e6, 1)}
-    if mem:
-        try:
-            row["peak_mb"] = round(compiled_memory_mb(fn, *args)["peak_mb"], 1)
-        except Exception:
-            pass
-    print(json.dumps(row), flush=True)
-    return t
+def _us(fn, *args, iters=20):
+    return benchmark_fn(jax.jit(fn), *args, iters=iters) * 1e6
+
+
+def full_step(inputs):
+    out = {}
+    for tag, (am, lm) in (
+        ("fp32", inputs[:2]),
+        ("bf16", (inputs[0].astype(jnp.bfloat16), inputs[1].astype(jnp.bfloat16))),
+    ):
+        fns = {impl: jax.jit(lambda a, l, impl=impl: step_fn(
+            a, l, inputs[2], inputs[3], impl=impl)) for impl in IMPLS}
+        for f in fns.values():
+            jax.block_until_ready(f(am, lm))  # compile outside the turns
+        out[tag] = [
+            (impl, benchmark_fn(fns[impl], am, lm, iters=20) * 1e6)
+            for impl in ("xla", "cuda", "cuda", "xla")
+        ]
+        print(json.dumps({"full_step_us": tag, "turns": out[tag]}), flush=True)
+    return out
+
+
+def stages(inputs):
+    am, lm, symbols, boundary = inputs
+
+    def build(a, l):
+        return lattice.get_rnnt_logprobs_rows(l, a, symbols, 0, "regular", boundary)
+
+    def build_vjp(a, l):
+        def f(a_, l_):
+            px, py = build(a_, l_)
+            return (jnp.sum(jnp.where(jnp.isinf(px), 0.0, px))
+                    + jnp.sum(jnp.where(jnp.isinf(py), 0.0, py)))
+        return jax.value_and_grad(f, argnums=(0, 1))(a, l)
+
+    px, py = jax.block_until_ready(jax.jit(build)(am, lm))
+    _, (gx, gy) = frt.mutual_information_rows(px, py, boundary, calc_gradients=True)
+    lo = frt.get_rnnt_prune_ranges_rows(gx, gy, boundary, S_RANGE)[:, :, 0]
+    rows = {"lattice_build_fwd": _us(build, am, lm),
+            "lattice_build_fwd_vjp": _us(build_vjp, am, lm),
+            "prune_ranges": _us(lambda a, b: frt.get_rnnt_prune_ranges_rows(
+                a, b, boundary, S_RANGE), gx, gy)}
+    for impl in IMPLS:
+        rows[f"stage1_recursion_with_occupancies[{impl}]"] = _us(
+            lambda a, b: frt.mutual_information_rows(
+                a, b, boundary, calc_gradients=True, impl=impl), px, py)
+        rows[f"stage2_banded_fwd[{impl}]"] = _us(
+            lambda a, b, l: frt.mutual_information_rows(
+                a, b, boundary, lo=l, s_range=S_RANGE, impl=impl), px, py, lo)
+        rows[f"stage2_banded_fwd_vjp[{impl}]"] = _us(
+            lambda a, b, l: jax.value_and_grad(
+                lambda a_, b_: jnp.sum(frt.mutual_information_rows(
+                    a_, b_, boundary, lo=l, s_range=S_RANGE, impl=impl)),
+                argnums=(0, 1))(a, b), px, py, lo)
+    print(json.dumps({"stages_us": rows}), flush=True)
+    return rows
+
+
+def _op_scopes(hlo_text):
+    """HLO instruction name -> the named scope its metadata places it in."""
+    scopes = {}
+    for m in re.finditer(r"%?([\w.\-]+) = [^\n]*?op_name=\"([^\"]*)\"", hlo_text):
+        name, op_name = m.group(1), m.group(2)
+        scopes[name] = next((s for s in SCOPES if s in op_name), "other")
+    return scopes
+
+
+def traced(inputs):
+    """One traced step per impl, reduced to device time per scope."""
+    from jax.profiler import ProfileData
+
+    am32, lm32, symbols, boundary = inputs
+    out = {}
+    runs = [(impl, "fp32") for impl in IMPLS] + [("cuda", "bf16")]
+    for impl, tag in runs:
+        am, lm = am32, lm32
+        if tag == "bf16":
+            am, lm = am.astype(jnp.bfloat16), lm.astype(jnp.bfloat16)
+        f = jax.jit(lambda a, l: step_fn(a, l, symbols, boundary, impl=impl))
+        compiled = f.lower(am, lm).compile()
+        scopes = _op_scopes(compiled.as_text())
+        for _ in range(3):
+            jax.block_until_ready(compiled(am, lm))
+        d = tempfile.mkdtemp(prefix="frt_trace_")
+        jax.profiler.start_trace(d)
+        jax.block_until_ready(compiled(am, lm))
+        jax.profiler.stop_trace()
+        path = sorted(glob.glob(os.path.join(d, "**", "*.xplane.pb"),
+                                recursive=True))[-1]
+        pd = ProfileData.from_file(path)
+        per_scope, per_op, count, spans, lines = {}, {}, 0, [], {}
+        for plane in pd.planes:
+            if not plane.name.startswith("/device:GPU"):
+                continue
+            for line in plane.lines:
+                evs = list(line.events)
+                lines[line.name] = len(evs)
+                # the kernels (and copies) the device ran, one line per
+                # CUDA stream
+                if not line.name.startswith("Stream"):
+                    continue
+                for e in evs:
+                    stats = dict(e.stats)
+                    op = str(stats.get("hlo_op", e.name))
+                    scope = scopes.get(op, "other")
+                    dur = e.duration_ns / 1e3
+                    per_scope[scope] = per_scope.get(scope, 0.0) + dur
+                    per_op[op] = per_op.get(op, 0.0) + dur
+                    count += 1
+                    spans.append((e.start_ns, e.start_ns + e.duration_ns))
+        spans.sort()
+        busy, end = 0.0, None
+        for a, b in spans:
+            if end is None or a > end:
+                busy += b - a
+                end = b
+            elif b > end:
+                busy += b - end
+                end = b
+        window = (spans[-1][1] - spans[0][0]) if spans else 0
+        out[f"{impl}_{tag}"] = {
+            "device_us_by_scope": per_scope,
+            "kernels": count,
+            "busy_us": busy / 1e3,
+            "first_to_last_kernel_us": window / 1e3,
+            "top_ops_us": sorted(per_op.items(), key=lambda kv: -kv[1])[:12],
+            "device_lines": lines,
+        }
+        print(json.dumps({"trace": f"{impl}_{tag}", **out[f"{impl}_{tag}"]}),
+              flush=True)
+    return out
 
 
 def main():
-    am, lm, symbols, boundary = make_inputs()
-    lattice_dtype = None
-    if BF16:
-        am, lm = am.astype(jnp.bfloat16), lm.astype(jnp.bfloat16)
-        lattice_dtype = jnp.bfloat16
-    print(
-        json.dumps(
-            {"device": str(jax.devices()[0]), "B": B, "bf16": BF16}
-        ),
-        flush=True,
-    )
-
-    # full fused step (the bench.py headline)
-    def fused_step(am, lm):
-        def loss_fn(am, lm):
-            s, p, _ = frt.rnnt_loss_simple_pruned(
-                lm, am, symbols, 0, S_RANGE, boundary, reduction="sum",
-                lattice_dtype=lattice_dtype,
-            )
-            return 0.5 * s + p
-
-        return jax.value_and_grad(loss_fn, argnums=(0, 1))(am, lm)
-
-    report("fused_step_value_and_grad", fused_step, am, lm, mem=True)
-
-    # stage 1 alone: forward-only simple loss + occupancies
-    def stage1(am, lm):
-        return frt.rnnt_loss_simple(
-            lm, am, symbols, 0, boundary, reduction="none", calc_gradients=True
-        )
-
-    report("stage1_simple_with_occupancies_fwd", stage1, am, lm)
-
-    # lattice build alone (rows layout)
-    def build(am, lm):
-        return lattice.get_rnnt_logprobs_rows(lm, am, symbols, 0, "regular", boundary)
-
-    report("lattice_build_rows_fwd", build, am, lm)
-
-    # A/B the build implementations (round 3): einsum vs fused kernel,
-    # forward and forward+VJP (clean cotangents: zero on -inf positions)
-    def build_vjp(am, lm):
-        def f(a, l):
-            px, py = lattice.get_rnnt_logprobs_rows(
-                l, a, symbols, 0, "regular", boundary
-            )
-            return (
-                jnp.sum(jnp.where(jnp.isinf(px), 0.0, px))
-                + jnp.sum(jnp.where(jnp.isinf(py), 0.0, py))
-            )
-
-        return jax.value_and_grad(f, argnums=(0, 1))(am, lm)
-
-    for impl_name in ("xla", "fused"):
-        try:
-            lattice.set_lattice_build_impl(impl_name)
-            report(f"lattice_build_rows_fwd[{impl_name}]", build, am, lm)
-            report(f"lattice_build_rows_vjp[{impl_name}]", build_vjp, am, lm)
-        finally:
-            lattice.set_lattice_build_impl("auto")
-
-    px_rows, py_rows = build(am, lm)
-    px_rows = jax.block_until_ready(px_rows)
-
-    # recursion kernels alone on prebuilt rows
-    def rec_fwd(px_rows, py_rows):
-        return recursion.mutual_information_rows(
-            px_rows, py_rows, boundary, calc_gradients=False
-        )
-
-    report("recursion_rows_scores_only", rec_fwd, px_rows, py_rows)
-
-    def rec_wg(px_rows, py_rows):
-        return recursion.mutual_information_rows(
-            px_rows, py_rows, boundary, calc_gradients=True
-        )
-
-    report("recursion_rows_with_occupancies", rec_wg, px_rows, py_rows)
-
-    # banded recursion (stage-2 kernel) on the same rows
-    lo = jnp.asarray(
-        np.minimum(
-            (np.arange(T)[None, :] * (S - S_RANGE + 1) // T).astype(np.int32),
-            S - S_RANGE + 1,
-        )
-        * np.ones((B, 1), np.int32)
-    )
-
-    def rec_banded(px_rows, py_rows, lo):
-        return recursion.mutual_information_rows(
-            px_rows, py_rows, boundary, lo=lo, s_range=S_RANGE,
-            calc_gradients=False,
-        )
-
-    report("recursion_rows_banded_scores", rec_banded, px_rows, py_rows, lo)
-
-    def rec_banded_grad(px_rows, py_rows, lo):
-        f = lambda a, b: jnp.sum(
-            recursion.mutual_information_rows(
-                a, b, boundary, lo=lo, s_range=S_RANGE, calc_gradients=False
-            )
-        )
-        return jax.value_and_grad(f, argnums=(0, 1))(px_rows, py_rows)
-
-    report("recursion_rows_banded_value_and_grad", rec_banded_grad,
-           px_rows, py_rows, lo)
-
-    # prune ranges alone
-    _, (gx, gy) = rec_wg(px_rows, py_rows)
-    gx = jax.block_until_ready(gx)
-
-    def ranges_fn(gx, gy):
-        return frt.get_rnnt_prune_ranges_rows(gx, gy, boundary, S_RANGE)
-
-    report("prune_ranges_rows", ranges_fn, gx, gy)
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default=None, help="also write the results here")
+    args = ap.parse_args()
+    setup_compile_cache(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    dev = require_gpu()[0]
+    card = gpu_identity()
+    print(json.dumps({"device": dev.device_kind, "card": card}), flush=True)
+    inputs = make_inputs()
+    t0 = time.perf_counter()
+    result = {"device": dev.device_kind, "card": card,
+              "workload": {"B": B, "T": T, "S": S, "C": C, "s_range": S_RANGE},
+              "full_step_us": full_step(inputs), "stages_us": stages(inputs),
+              "trace": traced(inputs)}
+    result["wall_s"] = time.perf_counter() - t0
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
 
 
 if __name__ == "__main__":

@@ -26,7 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 
 import fast_rnnt_tpu as frt
-from fast_rnnt_tpu.utils import benchmark_on_device, compiled_memory_mb
+from fast_rnnt_tpu.utils import benchmark_fn, device_memory_stats
 
 BASE_PRUNED_US = 38112.0
 BASE_PRUNED_MB = 2647.8
@@ -111,7 +111,6 @@ def model_step_bench(iters):
         make_train_step,
     )
     from fast_rnnt_tpu.parallel import make_mesh, shard_batch
-    from fast_rnnt_tpu.utils.profiling import benchmark_on_device
 
     cfg = TransducerConfig()  # d_model=256, 6 conformer layers, vocab 500
     model, params = init_model(jax.random.PRNGKey(0), cfg)
@@ -141,7 +140,7 @@ def model_step_bench(iters):
         )
         return metrics["loss"], psum
 
-    dt = benchmark_on_device(one, batch[0], iters=iters)
+    dt = benchmark_fn(jax.jit(one), batch[0], iters=iters)
     audio_s = B * T_in * 0.01
     return {
         "step_us": round(dt * 1e6, 1),
@@ -172,16 +171,14 @@ def parity_check(B=2, T=16, S=6, C=12, seed=1234):
 
 
 def _measure(step, args, iters, baseline_us=None, baseline_mb=None, audio_s=None):
-    dt = benchmark_on_device(step, *args, iters=iters)
+    dt = benchmark_fn(jax.jit(step), *args, iters=iters)
     entry = {"step_us": round(dt * 1e6, 1)}
     if baseline_us:
         entry["vs_baseline"] = round(baseline_us / (dt * 1e6), 3)
-    try:
-        entry["peak_hbm_mb"] = round(compiled_memory_mb(step, *args)["peak_mb"], 1)
-        if baseline_mb:
-            entry["hbm_vs_baseline"] = round(baseline_mb / entry["peak_hbm_mb"], 3)
-    except Exception:
-        pass
+    # the allocator's peak since the process started (cumulative)
+    entry["peak_mb_in_use_so_far"] = round(
+        device_memory_stats()["peak_mb_in_use"], 1
+    )
     if audio_s:
         entry["audio_seconds_per_s"] = round(audio_s / dt, 1)
     return entry

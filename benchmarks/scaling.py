@@ -1,7 +1,7 @@
-"""Reproduce the BENCH.md "Scaling" table (production mode, ragged
-boundaries, auto build dispatch).
+"""Step time of the pruned pipeline at larger shapes (production mode,
+ragged boundaries).
 
-Run on the TPU (leave JAX_PLATFORMS unset):  python benchmarks/scaling.py
+Run on the GPU:  python benchmarks/scaling.py
 Prints one JSON line per shape.  Optional arg ``fp32`` re-runs the same
 shapes in the fp32-faithful mode.
 """
@@ -19,7 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 
 import fast_rnnt_tpu as frt
-from fast_rnnt_tpu.utils.profiling import benchmark_on_device, compiled_memory_mb
+from fast_rnnt_tpu.utils.profiling import benchmark_fn, gpu_identity
 
 S_RANGE = 5
 FP32 = "fp32" in sys.argv[1:]
@@ -60,22 +60,19 @@ def run(B, T, S, C):
 
         return jax.value_and_grad(loss_fn, argnums=(0, 1))(am_, lm_)
 
-    t = benchmark_on_device(step, am, lm, iters=10, trials=3)
+    t = benchmark_fn(jax.jit(step), am, lm, iters=10)
     row = {
         "B": B, "T": T, "S": S, "C": C,
         "mode": "fp32" if FP32 else "production",
         "step_ms": round(t * 1e3, 2),
         "audio_s_per_s": round(audio_s / t, 1),
     }
-    try:
-        row["peak_mb"] = round(compiled_memory_mb(step, am, lm)["peak_mb"], 1)
-    except Exception:
-        pass
     print(json.dumps(row), flush=True)
 
 
 def main():
-    print(json.dumps({"device": str(jax.devices()[0])}), flush=True)
+    print(json.dumps({"device": str(jax.devices()[0]), "card": gpu_identity()}),
+          flush=True)
     for shape in SHAPES:
         run(*shape)
 

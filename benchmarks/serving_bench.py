@@ -4,7 +4,7 @@ streaming step, at serving batch sizes.
 
 The reset is one fused ``where`` per state leaf, so the expectation is
 ~zero marginal cost — this script turns that expectation into a number
-(BENCH.md "Streaming serving").
+(the server's per-step overhead).
 
 Run: python benchmarks/serving_bench.py   (uses the default device)
 """
@@ -15,6 +15,7 @@ import sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 
 import json
+import time
 
 import jax
 import jax.numpy as jnp
@@ -28,7 +29,18 @@ from fast_rnnt_tpu.models import (
     streaming_reset,
     streaming_step,
 )
-from fast_rnnt_tpu.utils.profiling import benchmark_carried_on_device
+
+
+def _carried(step, state, *args, iters=150):
+    """Seconds per call of ``state = step(state, *args)``, the state
+    carried from call to call: host clock around ``block_until_ready``."""
+    step = jax.jit(step)
+    state = jax.block_until_ready(step(state, *args))  # compile
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        state = step(state, *args)
+    jax.block_until_ready(state)
+    return (time.perf_counter() - t0) / iters
 
 
 def main(B=128, chunk=32, churn=6):
@@ -62,16 +74,10 @@ def main(B=128, chunk=32, churn=6):
         new, _ = streaming_step(model, params, scfg, st, fc, cl)
         return new
 
-    dt_p = benchmark_carried_on_device(plain, state, feats, lens, iters=150)
-    dt_s = benchmark_carried_on_device(
-        served, state, reset, feats, lens, iters=150
-    )
-    dt_r = benchmark_carried_on_device(
-        reset_only, state, reset, feats, lens, iters=150
-    )
-    dt_e = benchmark_carried_on_device(
-        reset_enc, state, reset, feats, lens, iters=150
-    )
+    dt_p = _carried(plain, state, feats, lens)
+    dt_s = _carried(served, state, reset, feats, lens)
+    dt_r = _carried(reset_only, state, reset, feats, lens)
+    dt_e = _carried(reset_enc, state, reset, feats, lens)
     print(
         json.dumps(
             {

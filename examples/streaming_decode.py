@@ -2,7 +2,7 @@
 batch, then decode it chunk-by-chunk and verify the streamed tokens equal
 the offline decode exactly.
 
-Run:  python examples/streaming_decode.py   (CPU or TPU; a couple of minutes)
+Run:  python examples/streaming_decode.py   (CPU or GPU; a couple of minutes)
 """
 
 import os

@@ -1,15 +1,14 @@
-"""fast_rnnt_tpu — a TPU-native pruned RNN-T loss framework in JAX.
+"""fast_rnnt_tpu — a pruned RNN-T loss framework in JAX.
 
 A from-scratch re-design (not a port) of the capabilities of
-Samsung/tf-fast-rnnt (mounted read-only at /root/reference): the pruned
-RNN-T loss of the Pruned RNN-T paper (arXiv:2206.13236), built TPU-first on
-JAX/XLA (log-semiring associative scans + Pallas kernels + jax.sharding),
-lifting the reference's two declared limitations (GPU-only; mandatory
-boundary).
+Samsung/tf-fast-rnnt: the pruned RNN-T loss of the Pruned RNN-T paper
+(arXiv:2206.13236), built on JAX/XLA (log-semiring associative scans, a
+CUDA wavefront kernel for the recursion on GPUs, jax.sharding), lifting
+the reference's two declared limitations (GPU-only; mandatory boundary).
 
 Public API parity with the reference package
-(/root/reference/tf_fast_rnnt/python/tf_fast_rnnt/__init__.py:24-33), plus
-TPU-native extensions (parallel/, models/).
+(tf_fast_rnnt/python/tf_fast_rnnt/__init__.py:24-33), plus extensions
+(parallel/, models/).
 """
 
 from .ops.alignment import viterbi_alignment, viterbi_scores
@@ -21,7 +20,6 @@ from .ops.lattice import (
     get_rnnt_logprobs_pruned_simple,
     get_rnnt_logprobs_smoothed,
     roll_by_shifts,
-    set_lattice_build_impl,
     set_matmul_precision,
 )
 from .ops.losses import (
@@ -45,7 +43,6 @@ from .ops.recursion import (
     monotonic_lower_bound,
     mutual_information_recursion,
     mutual_information_rows,
-    register_impl,
 )
 
 __version__ = "0.1.0"
@@ -57,7 +54,6 @@ __all__ = [
     "mutual_information_rows",
     "cummin",
     "monotonic_lower_bound",
-    "register_impl",
     # lattice construction
     "fix_for_boundary",
     "get_rnnt_logprobs",
@@ -66,7 +62,6 @@ __all__ = [
     "get_rnnt_logprobs_pruned_simple",
     "get_rnnt_logprobs_smoothed",
     "roll_by_shifts",
-    "set_lattice_build_impl",
     "set_matmul_precision",
     # pruning pipeline
     "adjust_pruning_lower_bound",

@@ -1,9 +1,9 @@
 """Native (C++) host-side components, bound through ctypes.
 
 Counterpart of the reference's native layer (tf_fast_rnnt/csrc + the TF
-custom op).  On TPU the accelerator path is Pallas; the C++ here serves the
-host: a CPU oracle/fallback of the lattice recursion, cummin, and the
-ragged-batch planner used by the data pipeline.
+custom op).  The C++ here serves the host: a CPU oracle of the lattice
+recursion, cummin, the ragged-batch planner used by the data pipeline and
+the fbank features.
 
 The shared library is built on demand with the ambient `g++` (no external
 build deps); `cmake` users can instead build `libfrt_cpu.so` from

@@ -4,8 +4,8 @@
 // batch).  Groups utterances into batches under a frame budget using a
 // sorted first-fit policy that (a) minimizes padding waste by batching
 // similar-length utterances, and (b) quantizes padded lengths to a bucket
-// grid so XLA sees a small set of static shapes (compile-cache friendly —
-// the TPU analogue of dynamic batching).
+// grid so XLA sees a small set of static shapes (compile-cache friendly
+// dynamic batching).
 
 #include <algorithm>
 #include <cstdint>

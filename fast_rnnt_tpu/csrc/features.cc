@@ -1,6 +1,6 @@
 // Native log-mel filterbank feature extraction (host-side input pipeline).
 //
-// Production ASR serving/training feeds the TPU from the host: audio ->
+// Production ASR serving/training feeds the device from the host: audio ->
 // frames -> FFT -> mel filterbank -> log, per utterance, overlapped with
 // device compute.  The reference ships no input pipeline at all; this is
 // the from-scratch native component backing fast_rnnt_tpu.data.features.

@@ -1,10 +1,10 @@
 // CPU reference implementation of the mutual-information lattice recursion.
 //
 // Native-oracle counterpart of the reference's CUDA kernels
-// (/root/reference/tf_fast_rnnt/csrc/mutual_information_cuda.cu:174-422
-// forward, :490-760 backward), written as straightforward O(B*S*T) loops:
-// on a TPU deployment the accelerator path is Pallas (ops/kernels/), and
-// the native layer's job is host-side verification + fast CPU fallback.
+// (tf_fast_rnnt/csrc/mutual_information_cuda.cu:174-422 forward,
+// :490-760 backward), written as straightforward O(B*S*T) loops: the
+// accelerator paths are the XLA core and the GPU kernels (ops/), and the
+// native layer's job is host-side verification.
 // Exposed through ctypes (csrc/__init__.py); see also tests/test_csrc.py
 // which closes the JAX / numpy / C++ oracle triangle.
 //

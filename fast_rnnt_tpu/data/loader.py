@@ -1,6 +1,6 @@
-"""Ragged-utterance batching for transducer training on TPU.
+"""Ragged-utterance batching for transducer training.
 
-XLA recompiles per input shape, so a TPU input pipeline must feed a SMALL
+XLA recompiles per input shape, so an input pipeline must feed a SMALL
 set of static padded shapes.  The native planner (csrc/batching.cc) groups
 utterances by length under a frame budget and quantizes the padded (T, S)
 to a bucket grid; this module turns plans into padded device-ready batches
@@ -117,7 +117,7 @@ class RaggedBatcher:
 def prefetch(iterator, depth: int = 2):
     """Run an iterator on a background thread with a bounded queue.
 
-    The standard host/device overlap for a TPU input pipeline: while the
+    The standard host/device overlap for an input pipeline: while the
     device executes step N, the host collates (and feature-extracts, see
     ``fast_rnnt_tpu.csrc.fbank_cpu``) batch N+1.  ``depth`` bounds host
     memory; exceptions from the producer re-raise at the consumer.

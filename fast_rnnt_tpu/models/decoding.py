@@ -1,8 +1,8 @@
-"""Batched transducer decoding on TPU (greedy search).
+"""Batched transducer decoding (greedy and modified beam search).
 
 The reference ships no inference at all (loss-only library); this completes
 the model family so the pruned transducer trained with models/training.py
-can actually be used.  TPU-first design decisions:
+can actually be used.  Design decisions:
 
   * fully batched, static shapes: greedy search is one `lax.while_loop`
     whose every trip is exactly one predictor+joiner evaluation per
@@ -84,8 +84,8 @@ def greedy_over_frames(
     ``T_blk * max_symbols_per_frame`` sequential evals even though speech
     emits blank on most frames; this loop costs
     ``max over streams of (frames + emissions (+1 per capped frame))``
-    trips — ~3-4x fewer sequential small-matmul launches on a TPU, where
-    these tiny steps are latency-bound.  Emitted sequences are IDENTICAL
+    trips — ~3-4x fewer sequential small-matmul launches, and these tiny
+    steps are latency-bound.  Emitted sequences are IDENTICAL
     to the nested loops' (same greedy decisions in the same order; only
     the scheduling differs) — pinned by the streaming/decoding parity
     tests.
@@ -335,7 +335,7 @@ def modified_beam_search(
 ) -> Tuple[jax.Array, jax.Array]:
     """Batched modified beam search (at most ONE emission per frame — the
     constraint k2/icefall's ``modified_beam_search`` uses, which matches the
-    "modified" rnnt_type and keeps every shape static on TPU).
+    "modified" rnnt_type and keeps every shape static).
 
     Per frame each of the H live hypotheses expands over the full vocab
     (blank = stay, symbol = append); the top-H of the H*C candidates

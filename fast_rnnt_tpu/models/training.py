@@ -1,4 +1,4 @@
-"""Two-stage pruned-transducer training step, data-parallel over a TPU mesh.
+"""Two-stage pruned-transducer training step, data-parallel over a mesh.
 
 This is the end-to-end flow the reference README prescribes to its users
 (/root/reference/README.md:101-154) packaged as a library:

@@ -4,10 +4,10 @@ pruned joiner) for the LibriSpeech-scale training-step benchmark
 
 The reference library ships no models (it is loss-only; its README sketches
 the intended usage flow at /root/reference/README.md:101-154).  This module
-provides that usage as a first-class, TPU-first model family:
+provides that usage as a first-class model family:
 
   * Encoder: conv subsampling (4x) + conformer blocks (MHSA + depthwise-conv
-    module) — all MXU-friendly static-shape ops, bfloat16-ready.
+    module) — all static-shape matmul-friendly ops, bfloat16-ready.
   * Predictor: embedding + causal depthwise conv ("stateless" predictor) —
     no LSTM scan, so the whole model is a single fused feed-forward graph.
   * Joiner: pruned joiner over (B, T, s_range) pairs only — the memory win

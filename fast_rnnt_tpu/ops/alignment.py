@@ -1,6 +1,6 @@
 """Viterbi (best-path) scoring and forced alignment on the RNN-T lattice.
 
-A TPU-native extension with no reference equivalent: the same first-order
+An extension with no reference equivalent: the same first-order
 row recurrence as the mutual-information forward (ops/recursion.py), but in
 the (max, +) tropical semiring instead of (logaddexp, +):
 

@@ -1,3 +1,3 @@
-from .wavefront import backward_lattice_pallas, forward_lattice_pallas, register
-
-__all__ = ["backward_lattice_pallas", "forward_lattice_pallas", "register"]
+"""Hand-written accelerator kernels: the GPU wavefront recursion
+(``mutual_information.cu``) and the GSPMD wrapper that runs such opaque
+calls per batch shard (``partition.py``)."""

@@ -1,15 +1,12 @@
-"""GSPMD/pjit composition for the Pallas kernel families.
+"""GSPMD/pjit composition for opaque kernel calls (the GPU recursion's FFI
+calls).
 
 The RNN-T lattice kernels are embarrassingly parallel over the batch
 dimension (the reference CUDA kernels index ``b`` independently,
-mutual_information_cuda.cu:244-248), but a ``pallas_call`` is an opaque
+mutual_information_cuda.cu:244-248), but an FFI custom call is an opaque
 unit to XLA's partitioner: under plain ``jit`` with batch-sharded inputs
-it is either rejected (explicit-axes meshes: "pallas_call requires all
-mesh axes to be Manual") or silently replicated on every device
-(auto-axes meshes).  Until round 3 the documented escape hatch was
-``impl="xla"`` (ops/recursion.py) or the ``parallel.data_parallel``
-shard_map wrappers; this module removes the footgun so plain-``jit``
-users keep the headline kernels.
+it would be replicated on every device.  This module runs such a call per
+batch shard, so plain-``jit`` users keep the kernels.
 
 Two mechanisms, matching JAX's two sharding worlds:
 
@@ -48,7 +45,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-__all__ = ["batch_partitioned"]
+__all__ = ["batch_only", "batch_partitioned"]
 
 # Test seam: when set, called as hook(name, per_shard_batch) each time a
 # kernel is traced on the PARTITIONED path (internal shard_map or
@@ -97,6 +94,44 @@ def _mesh_extent(mesh, names: Tuple[str, ...]) -> int:
     for name in names:
         n *= mesh.shape[name]
     return n
+
+
+def batch_only(*arrays):
+    """Reshard explicitly-sharded batch-major arrays (batch at axis 0) so
+    that only the batch axis is sharded, over the largest batch sharding
+    any of them has.  The losses call this on their inputs: under an
+    explicit-axes mesh, an input sharded along another axis (e.g. ``lm``
+    along the vocabulary) would otherwise meet batch-sharded operands in
+    an elementwise op that JAX rejects.  The transpose of ``reshard``
+    returns each gradient in its input's sharding.  ``None`` entries and
+    arrays without explicit shardings pass through unchanged."""
+    specs, mesh = [], None
+    for a in arrays:
+        spec, sh = (None, None) if a is None else _spec_and_sharding(a)
+        specs.append(spec)
+        if spec is not None and any(_norm_axes(e) for e in spec):
+            mesh = mesh or getattr(sh, "mesh", None)
+    if mesh is None:
+        return arrays
+    names = set().union(*[set(_norm_axes(e)) for s in specs if s is not None
+                          for e in s])
+    if not _axis_types_ok(mesh, names):
+        return arrays
+    batch = max(
+        (_norm_axes(s[0]) for s in specs if s is not None and len(s)),
+        key=lambda n: _mesh_extent(mesh, n) if n else 0,
+    )
+    out = []
+    for a, spec in zip(arrays, specs):
+        if a is None or spec is None:
+            out.append(a)
+            continue
+        b = batch if batch and a.shape[0] % _mesh_extent(mesh, batch) == 0 else None
+        want = _batch_only_spec(a.ndim, 0, b or None)
+        if tuple(spec) + (None,) * (a.ndim - len(spec)) != tuple(want):
+            a = jax.sharding.reshard(a, NamedSharding(mesh, want))
+        out.append(a)
+    return tuple(out)
 
 
 class _BatchPartitioned:

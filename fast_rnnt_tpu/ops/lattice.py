@@ -1,6 +1,6 @@
 """(px, py) lattice construction for the RNN-T recursion.
 
-TPU-native re-implementation of the lattice builders in
+JAX re-implementation of the lattice builders in
 /root/reference/tf_fast_rnnt/python/tf_fast_rnnt/rnnt_loss.py:
 
   get_rnnt_logprobs           rnnt_loss.py:63-223    (simple/additive joiner)
@@ -10,9 +10,10 @@ TPU-native re-implementation of the lattice builders in
   fix_for_boundary            rnnt_loss.py:29-61
 
 Shape/semantic contract is identical to the reference; the implementations
-are pure jnp (gathers via take_along_axis, the normalizer matmul on the MXU)
-so they fuse under jit and shard under pjit.  Known reference bugs fixed
-(each noted inline): the `modified` normalizer-width mismatches.
+are pure jnp (symbol gathers as one-hot einsums, the normalizer as one
+batched matmul) so they fuse under jit and shard under pjit.  Known
+reference bugs fixed (each noted inline): the `modified` normalizer-width
+mismatches.
 """
 
 from __future__ import annotations
@@ -39,30 +40,28 @@ __all__ = [
     "matmul_precision",
     "roll_by_shifts",
     "scatter_window",
-    "set_lattice_build_impl",
     "set_matmul_precision",
 ]
 
 RNNT_TYPES = ("regular", "modified", "constrained")
 
 # Guard for log(0) in the normalizer matmul.  The reference adds
-# nextafter(0, 1) = 1.4e-45 (rnnt_loss.py:181), a float32 denormal — TPUs
-# flush denormals to zero, so we use the smallest *normal* float32 instead.
+# nextafter(0, 1) = 1.4e-45 (rnnt_loss.py:181), a float32 denormal that
+# flush-to-zero modes drop, so we use the smallest *normal* float32 instead.
 # Only distinguishable when the inner product underflows below 1e-38.
 _TINY = float(np.finfo(np.float32).tiny)
 
-# MXU precision for the lattice einsums (normalizer matmuls and one-hot
-# gathers).  The TPU MXU multiplies fp32 as bf16 passes: DEFAULT (1 pass)
-# puts ~4e-3 error on the normalizer logs — visible next to the ~1e-3
-# fp32 noise floor of the whole pipeline — while HIGHEST (fp32-faithful)
-# reproduces the reference's full-fp32 GPU numerics (log error ~2e-7) and
-# costs ~5% of the benchmark step.  HIGH (3 passes, ~5e-5) is a sensible
-# production setting via set_matmul_precision("high").
+# Precision of the lattice einsums (normalizer matmuls and one-hot
+# gathers).  HIGHEST keeps float32 products in float32; on a GPU without
+# it a float32 matmul may run in TF32 (about three decimal digits), which
+# puts visible error on the normalizer logs next to the ~1e-3 float32 noise
+# floor of the whole pipeline.  "high"/"default" trade that accuracy for
+# tensor-core speed via set_matmul_precision.
 _MATMUL_PRECISION = jax.lax.Precision.HIGHEST
 
 
 def set_matmul_precision(precision) -> None:
-    """Set the MXU precision for lattice einsums: "default" | "high" |
+    """Set the precision for lattice einsums: "default" | "high" |
     "highest" (or a jax.lax.Precision).  Takes effect at next trace."""
     global _MATMUL_PRECISION
     _MATMUL_PRECISION = jax.lax.Precision(precision)
@@ -72,63 +71,6 @@ def matmul_precision() -> jax.lax.Precision:
     return _MATMUL_PRECISION
 
 
-# Simple-lattice build implementation: "auto" picks the fused Pallas
-# build kernel (ops/kernels/latbuild.py) whenever the recursion itself
-# defaults to the Pallas kernels (i.e. on TPU backends), because the XLA
-# build materializes exp(am - am_max) and re-reads am — ~3x the fused
-# kernel's HBM traffic (BENCH.md roofline).  "xla" forces the einsum
-# build everywhere (also the automatic fallback for f64 and S == 0).
-_LATTICE_BUILD_IMPL = "auto"
-
-
-def set_lattice_build_impl(impl: str) -> None:
-    """Select the simple-lattice build path: "auto" | "fused" | "xla"."""
-    if impl not in ("auto", "fused", "xla"):
-        raise ValueError(
-            f'lattice build impl must be "auto", "fused" or "xla", got {impl!r}'
-        )
-    global _LATTICE_BUILD_IMPL
-    _LATTICE_BUILD_IMPL = impl
-
-
-# "auto" crossover between the fused Pallas build and the XLA einsum
-# build.  Round-4 re-measurement after the BATCHED kernel rewrite
-# (latbuild.py; same-process full-step A/B on v5e): the fused build now
-# WINS the headline B=30/T=1000 shape it lost in round 3 — fp32 1,431
-# vs 1,575 us (-9%), bf16 1,027 vs 1,070 (-4%) — and keeps its round-3
-# wins at B*T >= 64k.  Small shapes still lose to XLA (B=8/T=500: +2.5x,
-# B=2/T=100: +60% — kernel launch/grid overhead doesn't amortize), with
-# the measured bracket now [4k loses, 30k wins]:
-_FUSED_BUILD_MIN_BT = 24_000
-
-
-def _use_fused_build(lm, am, symbols, impl=None) -> bool:
-    """``impl`` is the caller's per-call recursion impl: an explicit
-    "xla" opts the whole program out of pallas (e.g. CPU dry-runs of a
-    TPU-initialized process), so the build honors it too.  (GSPMD users
-    don't need it: ops/kernels/partition.py composes the kernels with
-    batch-sharded inputs under plain jit.)"""
-    if _LATTICE_BUILD_IMPL == "xla":
-        return False
-    if symbols.shape[1] == 0 or am.shape[1] == 0:
-        return False  # degenerate shapes: the XLA build handles them
-    if am.dtype not in (jnp.float32, jnp.bfloat16) or lm.dtype != am.dtype:
-        return False
-    if impl == "xla":
-        # an explicit "xla" wins even over a forced "fused" knob: it is
-        # both the documented whole-program opt-out AND the route the
-        # fused kernels' own interpret-mode fallback takes (latbuild ->
-        # get_rnnt_logprobs_rows(impl="xla") must not recurse)
-        return False
-    if _LATTICE_BUILD_IMPL == "fused":
-        return True
-    if am.shape[0] * am.shape[1] < _FUSED_BUILD_MIN_BT:
-        return False  # measured crossover, see _FUSED_BUILD_MIN_BT
-    from .recursion import _resolve_default
-
-    return _resolve_default() == "pallas"
-
-
 def _check_rnnt_type(rnnt_type: str) -> None:
     if rnnt_type not in RNNT_TYPES:
         raise ValueError(f"rnnt_type must be one of {RNNT_TYPES}, got {rnnt_type!r}")
@@ -136,15 +78,17 @@ def _check_rnnt_type(rnnt_type: str) -> None:
 
 def _symbol_onehot(symbols: jax.Array, C: int, dtype) -> jax.Array:
     """One-hot of the symbol ids, [B, S, C].  Gather-free building block:
-    per-row gathers lower to very slow TPU code, while one-hot einsums ride
-    the MXU (and transpose to einsums in the backward)."""
+    the one-hot einsums run as matmuls and transpose to matmuls in the
+    backward (no scatter-add)."""
     return (
         symbols.astype(jnp.int32)[:, :, None] == jnp.arange(C, dtype=jnp.int32)
     ).astype(dtype)
 
 
 def _gather_am_symbols(am: jax.Array, symbols: jax.Array) -> jax.Array:
-    """px_am[b, s, t] = am[b, t, symbols[b, s]] as a one-hot MXU einsum."""
+    """px_am[b, s, t] = am[b, t, symbols[b, s]] as a one-hot einsum (its
+    VJP is a matmul, not a scatter-add; PERF.md has the H100 comparison
+    with a plain gather)."""
     onehot = _symbol_onehot(symbols, am.shape[2], am.dtype)  # [B, S, C]
     return jnp.einsum(
         "bsc,btc->bst", onehot, am, preferred_element_type=jnp.float32,
@@ -164,8 +108,8 @@ def fix_for_boundary(px: jax.Array, boundary: Optional[jax.Array] = None) -> jax
 
     On the per-utterance one-past-the-last frame no symbol can be emitted;
     with no boundary the -inf column appended at t = T already encodes this.
-    Equivalent to rnnt_loss.py:29-61 (scatter replaced by a vector compare —
-    scatter is slow on TPU, a masked where fuses for free).
+    Equivalent to rnnt_loss.py:29-61 (scatter replaced by a vector compare,
+    a masked where that fuses into its neighbours).
     """
     if boundary is None:
         return px
@@ -181,14 +125,12 @@ def get_rnnt_logprobs(
     termination_symbol: int,
     rnnt_type: str = "regular",
     boundary: Optional[jax.Array] = None,
-    impl: Optional[str] = None,
 ) -> Tuple[jax.Array, jax.Array]:
     """Reduce the simple (additive-joiner) RNN-T problem to (px, py).
 
     Equivalent to rnnt_loss.py:63-223.  The key memory trick is preserved:
     the per-(s, t) normalizer is a single [S+1, C] x [C, T] matmul
-    (rnnt_loss.py:175-186) instead of materializing [B, T, S+1, C] logits —
-    this is also exactly the shape the TPU MXU wants.
+    (rnnt_loss.py:175-186) instead of materializing [B, T, S+1, C] logits.
 
     Args:
       lm: [B, S+1, C] language-model logits.
@@ -204,15 +146,6 @@ def get_rnnt_logprobs(
     _check_rnnt_type(rnnt_type)
     B, T, C = am.shape
     S = lm.shape[1] - 1
-    if _use_fused_build(lm, am, symbols, impl):
-        # one transposition pass beats the einsum build's exp round trip
-        from .kernels.latbuild import lattice_rows_fused
-
-        px_rows, py_rows = lattice_rows_fused(
-            lm, am, symbols, termination_symbol, rnnt_type, boundary
-        )
-        return jnp.moveaxis(px_rows, 0, 1), jnp.moveaxis(py_rows, 0, 1)
-
     # stability shifts only: the normalizer is shift-invariant, so their
     # gradient contributions cancel exactly — stop_gradient skips the
     # max-VJP scatter pass over the [B, T, C] tensor (~10% of step time)
@@ -257,34 +190,21 @@ def get_rnnt_logprobs_rows(
     rnnt_type: str = "regular",
     boundary: Optional[jax.Array] = None,
     out_dtype=None,
-    impl: Optional[str] = None,
 ) -> Tuple[jax.Array, jax.Array]:
     """s-major variant of :func:`get_rnnt_logprobs`: returns
     ``px_rows`` [S, B, T(+1)] and ``py_rows`` [S+1, B, T].
 
-    The fused pipelines and the Pallas kernels consume rows in exactly
-    this layout, so building it directly (einsums emit "sbt") removes the
-    transpose/staging pass the round-1 design paid between the lattice
-    build and every kernel call.  Numerically identical to
-    ``moveaxis(get_rnnt_logprobs(...), 1, 0)``.
+    The fused pipelines and the recursion consume rows in exactly this
+    layout, so building it directly (einsums emit "sbt") removes a
+    transpose pass between the lattice build and every recursion call.
+    Numerically identical to ``moveaxis(get_rnnt_logprobs(...), 1, 0)``.
 
     ``out_dtype`` (optional) casts the returned lattice (the bf16
-    mixed-precision storage mode); on the fused-kernel path the cast
-    happens inside the kernel's output stores.  On TPU backends the
-    build runs as ONE fused Pallas kernel (see set_lattice_build_impl /
-    ops/kernels/latbuild.py) — same formula, ~3x less HBM traffic.
+    mixed-precision storage mode).
     """
     _check_rnnt_type(rnnt_type)
     B, T, C = am.shape
     S = lm.shape[1] - 1
-    if _use_fused_build(lm, am, symbols, impl):
-        from .kernels.latbuild import lattice_rows_fused
-
-        return lattice_rows_fused(
-            lm, am, symbols, termination_symbol, rnnt_type, boundary,
-            out_dtype=out_dtype,
-        )
-
     # stability shifts only: gradient contributions cancel exactly (see
     # get_rnnt_logprobs)
     am_max = jax.lax.stop_gradient(jnp.max(am, axis=2, keepdims=True))
@@ -412,8 +332,7 @@ def roll_by_shifts(src: jax.Array, shifts: jax.Array) -> jax.Array:
     """Per-(b, t) circular right-roll of the last dim by ``shifts[b, t]``.
 
     Equivalent to ``_roll_by_shifts`` (rnnt_loss.py:814-851): a modular
-    index gather.  NOTE: per-row gathers lower to very slow TPU code (~40 ms
-    on the benchmark shape); the pruned lattice construction uses
+    index gather.  The pruned lattice construction uses
     :func:`scatter_window` instead, which is gather-free.  This function is
     kept for API parity.
     """
@@ -434,7 +353,7 @@ def scatter_window(
     Equivalent to the reference's pad-then-roll idiom
     (rnnt_loss.py:967-1011) whenever ``shifts + K <= out_width`` (always
     true for valid pruning ranges), but implemented as K vectorized selects
-    — no per-row gather, so it runs at HBM bandwidth on TPU.
+    that fuse into one elementwise pass — no per-row gather.
     """
     B, T, K = win.shape
     j = jax.lax.broadcasted_iota(jnp.int32, (B, T, out_width), 2)
@@ -479,8 +398,7 @@ def get_rnnt_logprobs_pruned(
         axis=1,
     )  # [B, S+1]
     # pruned_symbols[b, t, k] = symbols_with_terminal[b, ranges[b, t, k]],
-    # via a one-hot matmul (per-row gathers lower very slowly on TPU; exact
-    # for symbol ids < 2^24 in fp32).
+    # via a one-hot matmul (exact for symbol ids < 2^24 in fp32).
     ranges_onehot = (
         ranges.astype(jnp.int32)[:, :, :, None]
         == jnp.arange(S + 1, dtype=jnp.int32)
@@ -501,9 +419,7 @@ def get_rnnt_logprobs_pruned(
 
     # px[b,t,k] = logits[b,t,k,sym] - lse;  py = logits[b,t,k,blank] - lse
     # (fused compare+reduce + logsumexp; XLA fuses all of it into two
-    # passes over the pruned logits — measured faster than a hand-written
-    # Pallas rowwise kernel on v5e, whose lane-reductions and (N, 1)
-    # output layouts cost more than the saved pass)
+    # passes over the pruned logits)
     normalizers = jax.nn.logsumexp(logits, axis=3)  # [B, T, s_range]
     px = (
         jnp.sum(
@@ -547,7 +463,7 @@ def get_rnnt_logprobs_pruned_simple(
 ) -> Tuple[jax.Array, jax.Array]:
     """(px, py) of the pruned ADDITIVE-joiner loss, built band-natively.
 
-    TPU-native extension (no reference equivalent): when the joiner is
+    Extension with no reference equivalent: when the joiner is
     ``logits = am_pruned + lm_pruned`` (the rnnt_loss_simple joiner), the
     pruned lattice is EXACTLY the simple lattice masked to the pruning band:
 
@@ -559,8 +475,8 @@ def get_rnnt_logprobs_pruned_simple(
     factorizes through the same [S+1,C]x[C,T] matmul as the simple loss
     (rnnt_loss.py:175-186).  So instead of materializing the [B,T,K,C]
     pruned logits (the reference pipeline: do_rnnt_pruning ->
-    get_rnnt_logprobs_pruned, rnnt_loss.py:763-1020 — ~1 GB of HBM traffic
-    at the benchmark shape), everything stays in [B,S+1,T] tensors.
+    get_rnnt_logprobs_pruned, rnnt_loss.py:763-1020), everything stays in
+    [B,S+1,T] tensors.
 
     Numerically equal (fp32 round-off) to
     ``get_rnnt_logprobs_pruned(am_p + lm_p, symbols, ranges, ...)`` with
@@ -592,7 +508,7 @@ def band_mask_rows_smajor(x_rows: jax.Array, lo: jax.Array, K: int) -> jax.Array
     Sx, B, T1 = x_rows.shape
     lo = lo.astype(jnp.int32)
     if T1 == lo.shape[1] + 1:
-        lo = jnp.pad(lo, ((0, 0), (0, 1)), mode="edge")
+        lo = jnp.concatenate([lo, lo[:, -1:]], axis=1)
     lo3 = lo[None, :, :]  # (1, B, T')
     s_i = jax.lax.broadcasted_iota(jnp.int32, (Sx, 1, 1), 0)
     return jnp.where((s_i >= lo3) & (s_i < lo3 + K), x_rows, NEG_INF)
@@ -607,7 +523,7 @@ def band_mask_rows(x: jax.Array, ranges: jax.Array) -> jax.Array:
     K = ranges.shape[2]
     lo = ranges[:, :, 0].astype(jnp.int32)  # [B, T]
     if T1 == lo.shape[1] + 1:
-        lo = jnp.pad(lo, ((0, 0), (0, 1)), mode="edge")
+        lo = jnp.concatenate([lo, lo[:, -1:]], axis=1)
     lo = lo[:, None, :]  # [B, 1, T']
     s_i = jax.lax.broadcasted_iota(jnp.int32, (1, Sx, 1), 1)
     return jnp.where((s_i >= lo) & (s_i < lo + K), x, NEG_INF)
@@ -622,28 +538,12 @@ def get_rnnt_logprobs_smoothed_rows(
     am_only_scale: float = 0.1,
     boundary: Optional[jax.Array] = None,
     rnnt_type: str = "regular",
-    impl: Optional[str] = None,
 ) -> Tuple[jax.Array, jax.Array]:
     """s-major variant of :func:`get_rnnt_logprobs_smoothed` (same math,
-    (S, B, T)-major outputs feeding the rows recursion directly).
-
-    On TPU backends this dispatches to the fused Pallas build
-    (ops/kernels/latbuild.py::lattice_rows_fused_smoothed): the am-heavy
-    passes (softmax statistics, both normalizer matmuls, the gathers) run
-    in one pass over ``am``; only the tiny lm-side statistics and the
-    three-way interpolation stay in XLA.
-    """
+    (S, B, T)-major outputs feeding the rows recursion directly)."""
     _check_rnnt_type(rnnt_type)
     B, T, C = am.shape
     S = lm.shape[1] - 1
-    if _use_fused_build(lm, am, symbols, impl):
-        from .kernels.latbuild import lattice_rows_fused_smoothed
-
-        return lattice_rows_fused_smoothed(
-            lm, am, symbols, termination_symbol, lm_only_scale,
-            am_only_scale, boundary, rnnt_type,
-        )
-
     am_max = jax.lax.stop_gradient(jnp.max(am, axis=2, keepdims=True))
     lm_max = jax.lax.stop_gradient(jnp.max(lm, axis=2, keepdims=True))
     am_probs = jnp.exp(am - am_max)

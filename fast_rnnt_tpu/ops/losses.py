@@ -29,6 +29,7 @@ from .lattice import (
     get_rnnt_logprobs_rows,
     get_rnnt_logprobs_smoothed_rows,
 )
+from .kernels.partition import batch_only
 from .numerics import NEG_INF
 from .pruning import get_rnnt_prune_ranges_rows
 from .recursion import (
@@ -133,6 +134,7 @@ def rnnt_loss_simple(
         lm=lm, am=am, symbols=symbols,
         termination_symbol=termination_symbol, boundary=boundary,
     )
+    lm, am, symbols, boundary = batch_only(lm, am, symbols, boundary)
     # s-major end to end: the lattice einsums emit (S, B, T)-major rows and
     # the recursion consumes them directly — no transpose/staging pass
     # between build and kernels (see get_rnnt_logprobs_rows)
@@ -143,7 +145,6 @@ def rnnt_loss_simple(
         termination_symbol=termination_symbol,
         rnnt_type=rnnt_type,
         boundary=boundary,
-        impl=impl,
     )
     px_rows = _apply_delay_penalty_rows(px_rows, boundary, rnnt_type, delay_penalty)
     B = am.shape[0]
@@ -351,21 +352,21 @@ def rnnt_loss_pruned_simple(
 ) -> jax.Array:
     """Pruned RNN-T loss for the ADDITIVE joiner, band-native.
 
-    TPU-native fast path with no reference equivalent: numerically equal to
+    Fast path with no reference equivalent: numerically equal to
 
         am_p, lm_p = do_rnnt_pruning(am, lm, ranges)
         rnnt_loss_pruned(am_p + lm_p, symbols, ranges, ...)
 
     but never materializes the [B, T, s_range, C] pruned logits — the band
     is masked directly in [B, S+1, T] lattice space (see
-    :func:`get_rnnt_logprobs_pruned_simple`), cutting ~1 GB of HBM traffic
-    per step at the benchmark shape.  Use :func:`rnnt_loss_pruned` when the
+    :func:`get_rnnt_logprobs_pruned_simple`).  Use :func:`rnnt_loss_pruned` when the
     joiner is a real network.
     """
     check_rnnt_inputs(
         lm=lm, am=am, symbols=symbols,
         termination_symbol=termination_symbol, boundary=boundary, ranges=ranges,
     )
+    lm, am, symbols, boundary = batch_only(lm, am, symbols, boundary)
     if rnnt_type == "constrained" and ranges.shape[2] < 2:
         # width-1 bands are provably infeasible for constrained RNN-T
         # (see lattice.get_rnnt_logprobs_pruned)
@@ -387,7 +388,7 @@ def rnnt_loss_pruned_simple(
     )
     px_rows, py_rows = get_rnnt_logprobs_rows(
         lm, am, symbols, termination_symbol, base_type, boundary,
-        out_dtype=_cast, impl=impl,
+        out_dtype=_cast,
     )
     if rnnt_type == "constrained":
         # constrained adds the NEXT row's (band-masked) blank arc to px; the
@@ -442,6 +443,7 @@ def rnnt_loss_simple_pruned(
         lm=lm, am=am, symbols=symbols,
         termination_symbol=termination_symbol, boundary=boundary,
     )
+    lm, am, symbols, boundary = batch_only(lm, am, symbols, boundary)
     if rnnt_type == "constrained" and s_range < 2:
         # a width-1 band makes every constrained px arc -inf (its
         # py[s+1, t+1] term is out-of-band) -> infinite loss for every
@@ -451,22 +453,23 @@ def rnnt_loss_simple_pruned(
     boundary = _normalize_boundary(
         boundary, am.shape[0], symbols.shape[1], am.shape[1]
     )
-    if rnnt_type == "constrained":
-        # build the un-constrained base; the constrained px += py[1:] must
-        # happen AFTER band masking for the pruned stage (matching
-        # get_rnnt_logprobs_pruned, rnnt_loss.py:1015-1018)
-        px0_rows, py_rows = get_rnnt_logprobs_rows(
-            lm, am, symbols, termination_symbol, "modified", boundary,
-            impl=impl,
-        )
-        px_simple_rows = px0_rows + py_rows[1:]
-    else:
-        px_simple_rows, py_rows = get_rnnt_logprobs_rows(
-            lm, am, symbols, termination_symbol, rnnt_type, boundary,
-            out_dtype=lattice_dtype if delay_penalty <= 0.0 else None,
-            impl=impl,
-        )
-        px0_rows = px_simple_rows
+    # named scopes label the stages in profiler traces (and their
+    # backward ops, as jvp(...)/transpose(...) of the same names)
+    with jax.named_scope("lattice_build"):
+        if rnnt_type == "constrained":
+            # build the un-constrained base; the constrained px += py[1:]
+            # must happen AFTER band masking for the pruned stage
+            # (matching get_rnnt_logprobs_pruned, rnnt_loss.py:1015-1018)
+            px0_rows, py_rows = get_rnnt_logprobs_rows(
+                lm, am, symbols, termination_symbol, "modified", boundary,
+            )
+            px_simple_rows = px0_rows + py_rows[1:]
+        else:
+            px_simple_rows, py_rows = get_rnnt_logprobs_rows(
+                lm, am, symbols, termination_symbol, rnnt_type, boundary,
+                out_dtype=lattice_dtype if delay_penalty <= 0.0 else None,
+            )
+            px0_rows = px_simple_rows
 
     px_simple_rows = _apply_delay_penalty_rows(
         px_simple_rows, boundary, rnnt_type, delay_penalty
@@ -479,12 +482,12 @@ def rnnt_loss_simple_pruned(
         px_simple_rows = px_simple_rows.astype(lattice_dtype)
         px0_rows = px0_rows.astype(lattice_dtype)
         py_rows = py_rows.astype(lattice_dtype)
-    neg_simple, (gx_rows, gy_rows) = mutual_information_rows(
-        px_simple_rows, py_rows, boundary, calc_gradients=True, impl=impl
-    )
-    ranges = get_rnnt_prune_ranges_rows(
-        gx_rows, gy_rows, boundary, s_range, impl=impl
-    )
+    with jax.named_scope("stage1_recursion"):
+        neg_simple, (gx_rows, gy_rows) = mutual_information_rows(
+            px_simple_rows, py_rows, boundary, calc_gradients=True, impl=impl
+        )
+    with jax.named_scope("prune_ranges"):
+        ranges = get_rnnt_prune_ranges_rows(gx_rows, gy_rows, boundary, s_range)
     K = ranges.shape[2]
     lo = ranges[:, :, 0]
 
@@ -499,10 +502,11 @@ def rnnt_loss_simple_pruned(
     px_stage2 = _apply_delay_penalty_rows(
         px_stage2, boundary, rnnt_type, delay_penalty
     )
-    neg_pruned = mutual_information_rows(
-        px_stage2, py_rows, boundary, lo=lo, s_range=K,
-        calc_gradients=False, impl=impl,
-    )
+    with jax.named_scope("stage2_recursion"):
+        neg_pruned = mutual_information_rows(
+            px_stage2, py_rows, boundary, lo=lo, s_range=K,
+            calc_gradients=False, impl=impl,
+        )
     return _reduce(neg_simple, reduction), _reduce(neg_pruned, reduction), ranges
 
 
@@ -537,6 +541,7 @@ def rnnt_loss_smoothed_pruned(
         lm=lm, am=am, symbols=symbols,
         termination_symbol=termination_symbol, boundary=boundary,
     )
+    lm, am, symbols, boundary = batch_only(lm, am, symbols, boundary)
     if rnnt_type == "constrained" and s_range < 2:
         raise ValueError("constrained RNN-T needs s_range >= 2")
     boundary = _normalize_boundary(
@@ -545,7 +550,7 @@ def rnnt_loss_smoothed_pruned(
     px_sm_rows, py_sm_rows = get_rnnt_logprobs_smoothed_rows(
         lm, am, symbols, termination_symbol,
         lm_only_scale=lm_only_scale, am_only_scale=am_only_scale,
-        boundary=boundary, rnnt_type=rnnt_type, impl=impl,
+        boundary=boundary, rnnt_type=rnnt_type,
     )
     px_sm_rows = _apply_delay_penalty_rows(
         px_sm_rows, boundary, rnnt_type, delay_penalty
@@ -556,9 +561,7 @@ def rnnt_loss_smoothed_pruned(
     neg_smoothed, (gx_rows, gy_rows) = mutual_information_rows(
         px_sm_rows, py_sm_rows, boundary, calc_gradients=True, impl=impl
     )
-    ranges = get_rnnt_prune_ranges_rows(
-        gx_rows, gy_rows, boundary, s_range, impl=impl
-    )
+    ranges = get_rnnt_prune_ranges_rows(gx_rows, gy_rows, boundary, s_range)
     K = ranges.shape[2]
     lo = ranges[:, :, 0]
 
@@ -576,7 +579,7 @@ def rnnt_loss_smoothed_pruned(
     )
     px_rows, py_rows = get_rnnt_logprobs_rows(
         lm, am, symbols, termination_symbol, base_type, boundary,
-        out_dtype=_cast, impl=impl,
+        out_dtype=_cast,
     )
     if rnnt_type == "constrained":
         py_banded = band_mask_rows_smajor(py_rows, lo, K)
@@ -618,6 +621,7 @@ def rnnt_loss_smoothed(
         lm=lm, am=am, symbols=symbols,
         termination_symbol=termination_symbol, boundary=boundary,
     )
+    lm, am, symbols, boundary = batch_only(lm, am, symbols, boundary)
     px_rows, py_rows = get_rnnt_logprobs_smoothed_rows(
         lm=lm,
         am=am,
@@ -627,7 +631,6 @@ def rnnt_loss_smoothed(
         am_only_scale=am_only_scale,
         boundary=boundary,
         rnnt_type=rnnt_type,
-        impl=impl,
     )
     px_rows = _apply_delay_penalty_rows(px_rows, boundary, rnnt_type, delay_penalty)
     bnd = _normalize_boundary(boundary, am.shape[0], symbols.shape[1], am.shape[1])

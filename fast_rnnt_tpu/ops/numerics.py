@@ -1,14 +1,12 @@
 """Log-space / linear-recurrence numerics for the RNN-T lattice recursion.
 
-TPU-first design note
----------------------
-The reference implementation (/root/reference/tf_fast_rnnt/csrc/
+Design note (the XLA scan core)
+-------------------------------
+The reference implementation (tf_fast_rnnt/csrc/
 mutual_information_cuda.cu:174-422) evaluates the two-term DP recursion with a
-warp-synchronous anti-diagonal wavefront: at most 32 lanes are live per tile
-step, which is a good fit for a GPU SM but a terrible fit for a TPU VPU (8x128
-lanes) — almost all lanes would be masked off on every step.
-
-Instead we observe that for a *fixed* row ``s`` the recursion
+warp-synchronous anti-diagonal wavefront; so does this library's GPU kernel
+(ops/kernels/mutual_information.cu).  The portable XLA formulation instead
+observes that for a *fixed* row ``s`` the recursion
 
     p[s, t] = logaddexp(a[t], p[s, t-1] + c[t-1])
 
@@ -20,9 +18,9 @@ composes as
     (A1, b1) then (A2, b2)  ==  (A1 (x) A2,  (b1 (x) A2) (+) b2)
 
 so the whole row can be evaluated with ``lax.associative_scan`` in
-O(log T) depth and O(T) work, fully vectorized over (batch x T) lanes.
-The lattice then needs only S+1 *sequential* steps (a ``lax.scan`` over the
-symbol axis) instead of O((S+T)/32) partially-occupied wavefront steps.
+O(log T) depth and O(T) work, vectorized over (batch x T).  The lattice
+then needs only S+1 *sequential* steps (a ``lax.scan`` over the symbol
+axis), each built from plain XLA operations on any backend.
 
 The backward recursion has the same structure in ordinary (+, *) algebra.
 

@@ -8,14 +8,14 @@ Equivalent to the pruning pipeline of the reference
   get_rnnt_prune_ranges         rnnt_loss.py:647-761  (paper §3.2 bounds)
   do_rnnt_pruning               rnnt_loss.py:763-812
 
-The reference needed a custom CUDA Blelloch scan for the running min; on
-TPU that is ``lax.associative_scan`` (see ops/recursion.py:cummin), so this
+The reference needed a custom CUDA Blelloch scan for the running min; here
+that is ``lax.associative_scan`` (see ops/recursion.py:cummin), so this
 whole module is pure XLA.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import jax
 import jax.numpy as jnp
@@ -29,15 +29,6 @@ __all__ = [
     "get_rnnt_prune_ranges_rows",
     "do_rnnt_pruning",
 ]
-
-
-def _pallas_blocked(x: jax.Array) -> bool:
-    """Interpret-mode pallas cannot run inside a vma-checked shard_map
-    (wavefront.vma_blocks_interpret); the XLA path below is the
-    parity-tested equivalent."""
-    from .kernels.wavefront import _interpret_default, vma_blocks_interpret
-
-    return vma_blocks_interpret(_interpret_default(), x)
 
 
 def adjust_pruning_lower_bound(s_begin: jax.Array, s_range: int) -> jax.Array:
@@ -89,16 +80,10 @@ def get_rnnt_prune_ranges_rows(
     py_grad_rows: jax.Array,
     boundary: jax.Array,
     s_range: int,
-    impl: Optional[str] = None,
 ) -> jax.Array:
     """s-major variant of :func:`get_rnnt_prune_ranges` — consumes the
     (S, B, T)-major occupancies the fused pipeline's recursion emits, so
-    no transpose sits between the two stages.
-
-    ``impl`` mirrors the recursion's escape hatch: "xla" forces the
-    cumsum+argmax XLA formulation + XLA repair (the parity gate uses it
-    to check the fused Pallas ranges kernel against an independent
-    compiled path on hardware); None/"auto" picks per backend."""
+    no transpose sits between the two stages."""
     S, B, T1 = px_grad_rows.shape
     T = py_grad_rows.shape[-1]
     S1 = S + 1
@@ -112,25 +97,8 @@ def get_rnnt_prune_ranges_rows(
     if T1 == T + 1 and s_range < 2:
         raise ValueError("regular RNN-T needs s_range >= 2")
 
-    from .recursion import _resolve_default
-
     adjust_step = 2 if T1 == T else s_range
-    resolved = impl if impl not in (None, "auto") else _resolve_default()
-    if resolved == "pallas" and not _pallas_blocked(py_grad_rows):
-        # the kernel also applies the boundary padding + monotone repair
-        # below in-register — the XLA version of that post-processing is
-        # ~20 launch-bound micro-kernels (~80 µs vs the kernel's 25 µs at
-        # the benchmark shape)
-        from .kernels.ranges import window_argmax_rows_pallas
-
-        s_begin = window_argmax_rows_pallas(
-            jax.lax.stop_gradient(py_grad_rows),
-            jax.lax.stop_gradient(px_grad_rows),
-            s_range, boundary=boundary, adjust_step=adjust_step,
-        )
-        return s_begin[:, :, None] + jnp.arange(s_range, dtype=jnp.int32)
-
-    s_begin = _window_argmax(px_grad_rows, py_grad_rows, s_range, impl=resolved)  # (B, T)
+    s_begin = _window_argmax(px_grad_rows, py_grad_rows, s_range)  # (B, T)
 
     # Frames at/after each utterance's last real frame get the final window
     # start S - s_range + 1 (clipped at 0), so the last symbol is reachable
@@ -153,31 +121,20 @@ def _window_argmax(
     px_grad_rows: jax.Array,
     py_grad_rows: jax.Array,
     s_range: int,
-    impl: Optional[str] = None,
 ) -> jax.Array:
     """argmax_k of (window-sum of py_grad - px_grad entry) per frame
-    (rnnt_loss.py:722-729).  On TPU: one streaming Pallas pass
-    (kernels/ranges.py); elsewhere: padded cumsum + argmax in XLA.
+    (rnnt_loss.py:722-729): padded cumsum + argmax.
 
     The result is integer window starts — non-differentiable by
-    construction — so tangents are stopped at the inputs (pallas_call has
-    no JVP rule; the XLA argmax would drop them anyway)."""
-    from .recursion import _resolve_default
-
+    construction — so tangents are stopped at the inputs."""
     px_grad_rows = jax.lax.stop_gradient(px_grad_rows)
     py_grad_rows = jax.lax.stop_gradient(py_grad_rows)
 
     S1, B, T = py_grad_rows.shape
     T1 = px_grad_rows.shape[2]
-    resolved = impl if impl not in (None, "auto") else _resolve_default()
-    if resolved == "pallas" and not _pallas_blocked(py_grad_rows):
-        from .kernels.ranges import window_argmax_rows_pallas
-
-        return window_argmax_rows_pallas(py_grad_rows, px_grad_rows, s_range)
     if s_range == 1:
         # width-1 window: exact row values (the cumsum difference below
-        # carries ~1e-7*S float drift that flips near-tie argmaxes; the
-        # Pallas kernel is exact at K=1, keep both sides identical)
+        # carries ~1e-7*S float drift that flips near-tie argmaxes)
         blk_sum_grad = py_grad_rows.astype(jnp.float32)
     else:
         cumsum = jnp.cumsum(
@@ -205,9 +162,8 @@ def do_rnnt_pruning(
     B, T, s_range = ranges.shape
     S1, C = lm.shape[1], lm.shape[2]
     am_pruned = jnp.broadcast_to(am[:, :, None, :], (B, T, s_range, C))
-    # lm_pruned[b, t, k, :] = lm[b, ranges[b, t, k], :].  Formulated as a
-    # one-hot matmul instead of a per-row gather: XLA's general gather is
-    # ~15x slower than this MXU einsum on TPU for the benchmark shape.
+    # lm_pruned[b, t, k, :] = lm[b, ranges[b, t, k], :], formulated as a
+    # one-hot matmul instead of a per-row gather.
     onehot = (
         ranges[:, :, :, None] == jnp.arange(S1, dtype=ranges.dtype)
     ).astype(lm.dtype)  # (B, T, K, S1)

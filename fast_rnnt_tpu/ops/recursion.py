@@ -1,6 +1,6 @@
 """Mutual-information lattice recursion — the differentiable core op.
 
-This is the TPU-native replacement for the reference's CUDA kernel pair +
+This is the JAX replacement for the reference's CUDA kernel pair +
 TF custom op (+ gradient registration):
 
   * forward wavefront kernel   /root/reference/tf_fast_rnnt/csrc/
@@ -19,16 +19,23 @@ reference __init__.py:115-133):
                                  p[b,s,t-1]   + py[b,s,t-1])
     scores[b] = p[b, s_end, t_end]
 
-TPU-first formulation (see ops/numerics.py for the derivation): for each row
-``s`` the recursion is a first-order linear recurrence along ``t`` in the
-log-semiring, solved with an associative scan — S+1 sequential steps, each
-fully vectorized over (B, T+1) VPU lanes.  The backward (occupancy) recursion
-is the same structure in ordinary algebra, run over rows in reverse.
+Two implementations share one contract:
+
+  * the XLA scan core (``impl="xla"``, every backend; see ops/numerics.py
+    for the derivation): for each row ``s`` the recursion is a first-order
+    linear recurrence along ``t`` in the log-semiring, solved with an
+    associative scan — S+1 sequential steps, each vectorized over (B, T+1).
+    The backward (occupancy) recursion is the same structure in ordinary
+    algebra, run over rows in reverse.
+  * the GPU wavefront kernels (``impl="cuda"``,
+    ops/kernels/mutual_information.cu): one block per utterance walks the
+    lattice diagonals with the carry on chip, one launch per direction —
+    the reference's CUDA design.  The default on a CUDA GPU.
 
 Differences from the reference (deliberate, documented):
   * ``boundary`` is OPTIONAL (defaults to [0, 0, S, T]); the reference op
     requires it (README.md:5-6 lists this as a limitation).
-  * works on CPU/TPU/GPU — anything XLA targets (reference is GPU-only).
+  * works on any backend XLA targets (reference is GPU-only).
   * ``px_grad`` for the modified/constrained variants has shape [B,S,T]
     matching ``px`` (the reference always allocates [B,S,T+1],
     tf_fast_rnnt_op.cc:84 — a latent shape bug; only `regular` is tested).
@@ -65,10 +72,10 @@ def _normalize_boundary(
         return jnp.broadcast_to(row, (B, 4))
     b = boundary.astype(jnp.int32)
     # Clamp to the lattice so out-of-range values (e.g. an exclusive-vs-
-    # inclusive t_end off-by-one) behave identically in the XLA and Pallas
+    # inclusive t_end off-by-one) behave identically in the XLA and GPU
     # implementations instead of silently diverging (XLA's gather clamps,
-    # the kernel's one-hot harvest would miss).  Opt-in hard validation is
-    # available via utils.validation.checkify_rnnt_inputs.
+    # the kernel reads the score only at an in-range cell).  Opt-in hard
+    # validation is available via utils.validation.checkify_rnnt_inputs.
     se = jnp.clip(b[:, 2], 0, S)
     te = jnp.clip(b[:, 3], 0, T)
     sb = jnp.clip(b[:, 0], 0, se)
@@ -111,8 +118,7 @@ def _apply_boundary_mask(
 
 def _promote_subf32(x: jax.Array) -> jax.Array:
     """Recursion math runs at >= f32 (the bf16 mixed-precision mode only
-    narrows the HBM storage; matches the Pallas kernels' in-register
-    upcast)."""
+    narrows the storage; matches the GPU kernels' in-register upcast)."""
     if jnp.issubdtype(x.dtype, jnp.floating) and jnp.finfo(x.dtype).bits < 32:
         return x.astype(jnp.float32)
     return x
@@ -146,9 +152,10 @@ def _mask_rows(
 
     if lo is not None:
         lo = lo.astype(jnp.int32)[None, :, :]  # (1, B, T)
-        lo_px = lo if T1 == T else jnp.pad(
-            lo, ((0, 0), (0, 0), (0, 1)), mode="edge"
-        )
+        # regular px's extra t = T column takes the last frame's band
+        # (a concatenate, not an edge pad: that slices the sharded batch
+        # axis too, which explicit meshes reject)
+        lo_px = lo if T1 == T else jnp.concatenate([lo, lo[:, :, -1:]], axis=2)
         px_ok &= (s_px >= lo_px) & (s_px < lo_px + K)
         py_ok &= (s_py >= lo) & (s_py < lo + K)
 
@@ -163,8 +170,11 @@ def _forward_rows_xla(
     boundary: jax.Array,
     lo: Optional[jax.Array] = None,
     K: int = 0,
-) -> Tuple[jax.Array, jax.Array]:
-    """s-major forward: returns (p_rows [S+1, B, T+1], scores [B]).
+    keep_p: bool = True,
+) -> Tuple[Optional[jax.Array], jax.Array]:
+    """s-major forward: returns (p_rows [S+1, B, T+1], scores [B]), or
+    (None, scores) with ``keep_p=False``, which never materializes the
+    lattice (no autodiff residual is needed on the primal-only path).
 
     Row-scan over s; each row solved by a log-semiring associative scan
     (replaces the CUDA forward wavefront, mutual_information_cuda.cu:174-422).
@@ -187,9 +197,12 @@ def _forward_rows_xla(
     t_iota = jax.lax.broadcasted_iota(jnp.int32, (B, T + 1), 1)
     source_t = t_iota == tb[:, None]  # (B, T+1) one-hot column of t_begin
 
+    se = boundary[:, 2]
+    end_t = t_iota == boundary[:, 3][:, None]
     s_idx = jnp.arange(S + 1, dtype=jnp.int32)
 
-    def step(prev_p, xs):
+    def step(carry, xs):
+        prev_p, best = carry
         s, px_row, py_row = xs
         if modified:
             # a[t] = p[s-1, t-1] + px[s-1, t-1]
@@ -204,70 +217,18 @@ def _forward_rows_xla(
         # coeff[t] = py[s, t-1]; coeff[0] multiplies p[s,-1] = -inf (ignored).
         coeff = jnp.pad(py_row, ((0, 0), (1, 0)), constant_values=NEG_INF)
         p_row = log_linear_scan(coeff, b, axis=-1)
-        return p_row, p_row
-
-    init = jax.lax.full_like(py_t, NEG_INF, shape=(B, T + 1))
-    _, p_rows = jax.lax.scan(step, init, (s_idx, px_pad, py_t))
-
-    se = boundary[:, 2]
-    te = boundary[:, 3]
-    scores = p_rows[se, jnp.arange(B), te]
-    return p_rows, scores
-
-
-def _forward_scores_rows_xla(
-    px_rows: jax.Array,
-    py_rows: jax.Array,
-    boundary: jax.Array,
-    lo: Optional[jax.Array] = None,
-    K: int = 0,
-) -> jax.Array:
-    """Scores-only s-major forward: identical recursion to
-    _forward_rows_xla but the score is harvested into the scan carry, so
-    the (S+1, B, T+1) lattice is never materialized (no autodiff residual
-    is needed on the primal-only path)."""
-    S, B, T1 = px_rows.shape
-    T = py_rows.shape[2]
-    modified = T1 == T
-
-    px_t, py_t = _mask_rows(px_rows, py_rows, boundary, modified, lo, K)
-    px_t, py_t = _promote_subf32(px_t), _promote_subf32(py_t)
-    pad_row = jax.lax.full_like(px_t, NEG_INF, shape=(1, B, T1))
-    px_pad = jnp.concatenate([pad_row, px_t], axis=0)
-
-    sb = boundary[:, 0]
-    tb = boundary[:, 1]
-    se = boundary[:, 2]
-    te = boundary[:, 3]
-    t_iota = jax.lax.broadcasted_iota(jnp.int32, (B, T + 1), 1)
-    source_t = t_iota == tb[:, None]
-    end_t = t_iota == te[:, None]
-    s_idx = jnp.arange(S + 1, dtype=jnp.int32)
-
-    def step(carry, xs):
-        prev_p, best = carry
-        s, px_row, py_row = xs
-        if modified:
-            a = prev_p[:, :T] + px_row
-            a = jnp.pad(a, ((0, 0), (1, 0)), constant_values=NEG_INF)
-        else:
-            a = prev_p + px_row
-        src = jnp.where((s == sb)[:, None] & source_t, 0.0, NEG_INF).astype(a.dtype)
-        b = logaddexp(a, src)
-        coeff = jnp.pad(py_row, ((0, 0), (1, 0)), constant_values=NEG_INF)
-        p_row = log_linear_scan(coeff, b, axis=-1)
+        # harvest the score in the carry (a gather from p_rows would need
+        # an explicit out-sharding under batch-sharded explicit meshes)
         val = jnp.max(jnp.where(end_t, p_row, NEG_INF), axis=1)
         best = jnp.where(s == se, val, best)
-        return (p_row, best), None
+        return (p_row, best), (p_row if keep_p else None)
 
     init = (
         jax.lax.full_like(py_t, NEG_INF, shape=(B, T + 1)),
-        # full_like (not jnp.full) so the carry's varying-mesh-axes match
-        # the scan body's output under shard_map
         jax.lax.full_like(py_t, NEG_INF, shape=(B,)),
     )
-    (_, scores), _ = jax.lax.scan(step, init, (s_idx, px_pad, py_t))
-    return scores
+    (_, scores), p_rows = jax.lax.scan(step, init, (s_idx, px_pad, py_t))
+    return p_rows, scores
 
 
 def _backward_rows_xla(
@@ -292,8 +253,6 @@ def _backward_rows_xla(
 
     Per row, g is a first-order linear recurrence along decreasing t —
     solved with a reverse associative scan; rows sweep s from S down to 0.
-    ``p_rows`` may be lane-padded past T+1 (the Pallas residual) — the
-    excess is sliced off.
     """
     S, B, T1 = px_rows.shape
     T = py_rows.shape[2]
@@ -306,7 +265,7 @@ def _backward_rows_xla(
     # px_pad2[s] = px[s] for s < S; -inf for s = S (no arcs out of row S).
     px_pad2 = jnp.concatenate([px_t, pad_row], axis=0)  # (S+1, B, T1)
 
-    p_t = _promote_subf32(p_rows[:, :, : T + 1])  # (S+1, B, T+1)
+    p_t = _promote_subf32(p_rows)  # (S+1, B, T+1)
     zeros_row = jax.lax.full_like(p_t, 0.0, shape=(1, B, T + 1))
     p_next_t = jnp.concatenate([p_t[1:], zeros_row], axis=0)  # p[s+1] rows
 
@@ -344,155 +303,39 @@ def _backward_rows_xla(
     return pxg_rows[:S].astype(store_dt), pyg_rows.astype(store_dt)
 
 
-# --- legacy (B, S, T)-major wrappers (the register_impl interface) ----------
-
-
-def _forward_lattice_xla(
-    px: jax.Array, py: jax.Array, boundary: jax.Array
-) -> Tuple[jax.Array, jax.Array]:
-    """register_impl-interface forward: residual is the s-major p_rows."""
-    p_rows, scores = _forward_rows_xla(
-        jnp.moveaxis(px, 1, 0), jnp.moveaxis(py, 1, 0), boundary
-    )
-    return p_rows, scores
-
-
-def _backward_lattice_xla(
-    px: jax.Array,
-    py: jax.Array,
-    p_rows: jax.Array,
-    boundary: jax.Array,
-    ans_grad: jax.Array,
-) -> Tuple[jax.Array, jax.Array]:
-    pxg_rows, pyg_rows = _backward_rows_xla(
-        jnp.moveaxis(px, 1, 0), jnp.moveaxis(py, 1, 0), p_rows, boundary, ans_grad
-    )
-    return jnp.moveaxis(pxg_rows, 0, 1), jnp.moveaxis(pyg_rows, 0, 1)
-
-
 # -----------------------------------------------------------------------------
-# Implementation dispatch (XLA scan core now; Pallas kernel plugs in here).
+# Implementation dispatch.  One rule: the GPU wavefront kernels
+# (ops/kernels/mutual_information.cu, impl="cuda") when JAX's default
+# backend is a CUDA GPU and the kernels cover the dtype and shape; the XLA
+# scan core above otherwise.  impl="xla" forces the scan core; impl="cuda"
+# forces the kernels and raises where they cannot run.
 # -----------------------------------------------------------------------------
 
-_IMPL = {"xla": (_forward_lattice_xla, _backward_lattice_xla)}
-_DEFAULT_IMPL: Optional[str] = None  # resolved lazily (backend-dependent)
+IMPLS = ("xla", "cuda")
 
 
-def _register_pallas_lazy():
-    from .kernels import register
-
-    register(default=False)
-
-
-# implementations that self-register on first request
-_LAZY_IMPLS = {"pallas": _register_pallas_lazy}
-
-
-def register_impl(name, forward_fn, backward_fn, default: bool = False):
-    """Register an alternative lattice implementation (e.g. the Pallas
-    wavefront kernels in ops/kernels/)."""
-    global _DEFAULT_IMPL
-    _IMPL[name] = (forward_fn, backward_fn)
-    if default:
-        _DEFAULT_IMPL = name
-
-
-def _resolve_default() -> str:
-    """Pick the default implementation for this process: the Pallas row-scan
-    kernels on TPU backends, the pure-XLA associative-scan core elsewhere.
-
-    NOTE for GSPMD users: under plain `jit` with sharded inputs prefer
-    impl="xla" (a pallas_call is an opaque unit to the partitioner); the
-    shard_map wrappers in parallel/sharding.py compose with "pallas"."""
-    global _DEFAULT_IMPL
-    if _DEFAULT_IMPL is None:
-        impl = "xla"
-        try:
-            dev = jax.devices()[0]
-            on_tpu = "tpu" in dev.platform.lower() or "TPU" in getattr(
-                dev, "device_kind", ""
-            )
-        except RuntimeError:  # no backend available
-            on_tpu = False
-        if on_tpu:
-            try:
-                _LAZY_IMPLS["pallas"]()
-                impl = "pallas"
-            except ImportError as e:
-                # the headline kernel path being unavailable on TPU is
-                # worth a loud warning, not a silent 10x slowdown
-                import warnings
-
-                warnings.warn(
-                    f"Pallas lattice kernels unavailable ({e}); falling "
-                    "back to the pure-XLA implementation",
-                    RuntimeWarning,
-                )
-        _DEFAULT_IMPL = impl
-    return _DEFAULT_IMPL
-
-
-def set_default_impl(impl: Optional[str]) -> None:
-    """Pin (or reset) the process-default recursion implementation.
-
-    ``"xla"`` / ``"pallas"`` / a registered custom name force that
-    implementation for every call that doesn't pass an explicit
-    ``impl=``; ``None`` clears the pin so the next call re-resolves per
-    backend (see :func:`_resolve_default`).  The supported way to route
-    a TPU-initialized process onto the XLA core for a CPU mesh (e.g. a
-    virtual-device dry-run)."""
-    global _DEFAULT_IMPL
-    if impl is not None and impl not in _IMPL and impl not in _LAZY_IMPLS:
-        raise ValueError(
-            f"unknown impl {impl!r}; registered: "
-            f"{sorted(set(_IMPL) | set(_LAZY_IMPLS))}"
-        )
-    _DEFAULT_IMPL = impl
-
-
-def _get_impl(impl: Optional[str]):
-    if impl is None or impl == "auto":
-        impl = _resolve_default()
-    if impl not in _IMPL and impl in _LAZY_IMPLS:
-        # lazy-register on explicit request (auto-resolution registers only
-        # on TPU backends)
-        _LAZY_IMPLS[impl]()
-    if impl not in _IMPL:
+def _check_impl(impl: Optional[str]) -> None:
+    if impl not in (None, "auto") + IMPLS:
         raise ValueError(
             f"unknown mutual_information_recursion impl {impl!r}; "
-            f"registered: {sorted(_IMPL)}"
+            f"expected one of {IMPLS} or None"
         )
-    return _IMPL[impl]
 
 
-def _resolve_impl_for_dtype(impl: Optional[str], dtype) -> Optional[str]:
-    """Dtype policy for the lattice implementations.
+def _use_cuda(impl: Optional[str], px_rows: jax.Array, py_rows: jax.Array) -> bool:
+    from .kernels import mutual_information as gpu
 
-    The Pallas kernels handle float32 natively and sub-f32 floats (bf16,
-    f16) as STORAGE dtypes — tiles are upcast in-register and the
-    recursion computes f32 (the mixed-precision lattice mode).  f64 is
-    software-emulated on TPU (the reference's double CUDA instantiations,
-    mutual_information_cuda.cu:1015-1036, have no TPU analogue), so:
-
-      * auto/None: f64 (and wider) inputs route to the dtype-generic XLA
-        scan core (f64-tested in tests/test_recursion.py), never "pallas".
-      * explicit impl="pallas" with f64: loud TypeError — never a silent
-        downcast.
-    """
-    dtype = jnp.dtype(dtype)
-    if not (
-        jnp.issubdtype(dtype, jnp.floating) and jnp.finfo(dtype).bits > 32
-    ):
-        return impl
-    if impl in (None, "auto"):
-        resolved = _resolve_default()
-        return "xla" if resolved == "pallas" else resolved
-    if impl == "pallas":
-        raise TypeError(
-            f"impl='pallas' supports float32 and narrower floats only, got "
-            f"{dtype}; cast the inputs or use impl='xla' (dtype-generic)"
-        )
-    return impl
+    if impl == "xla":
+        return False
+    if impl == "cuda":
+        if not gpu.supports(px_rows, py_rows):
+            raise TypeError(
+                "impl='cuda' covers float32/bfloat16 storage and at most "
+                f"{gpu.MAX_ROWS} lattice rows; got {px_rows.dtype} with "
+                f"S+1={py_rows.shape[0]} (use impl='xla')"
+            )
+        return True  # forward/backward_rows_cuda raise without a GPU
+    return gpu.cuda_available() and gpu.supports(px_rows, py_rows)
 
 
 def _float0_like(x):
@@ -508,76 +351,37 @@ def _f0_or_none(x):
 # The rows-level entry points below are the single compute path: the public
 # (B, S, T)-major API transposes at its edges, and the fused pruned
 # pipelines (ops/losses.py) call the rows ops directly with their s-major
-# lattices + the pruning band (lo, K), which the kernels mask inline.
-
-
-def _rows_resolved(impl: Optional[str]) -> str:
-    resolved = impl if impl not in (None, "auto") else _resolve_default()
-    if resolved not in ("xla", "pallas") and resolved not in _IMPL:
-        raise ValueError(
-            f"unknown mutual_information_recursion impl {resolved!r}; "
-            f"registered: {sorted(set(_IMPL) | set(_LAZY_IMPLS))}"
-        )
-    return resolved
+# lattices + the pruning band (lo, K), which both implementations mask
+# inline.
 
 
 def _rows_forward(px_rows, py_rows, boundary, lo, K, impl):
-    """Returns (residual, scores).  residual = s-major p_rows for the
-    built-in impls, or a custom impl's own residual."""
-    resolved = _rows_resolved(impl)
-    if resolved == "pallas":
-        from .kernels.wavefront import forward_rows_pallas
+    """Returns (p_rows [S+1, B, T+1] float32, scores [B])."""
+    if _use_cuda(impl, px_rows, py_rows):
+        from .kernels.mutual_information import forward_rows_cuda
 
-        return forward_rows_pallas(px_rows, py_rows, boundary, lo=lo, K=K)
-    if resolved == "xla":
-        return _forward_rows_xla(px_rows, py_rows, boundary, lo=lo, K=K)
-    # custom register_impl implementation: (B, S, T)-major interface.
-    # Band masking (if any) is applied before the call; re-masking the
-    # boundary inside the impl is idempotent.
-    fwd, _ = _get_impl(resolved)
-    modified = px_rows.shape[2] == py_rows.shape[2]
-    if lo is not None:
-        px_rows, py_rows = _mask_rows(
-            px_rows, py_rows, boundary, modified, lo, K
-        )
-    res, scores = fwd(
-        jnp.moveaxis(px_rows, 0, 1), jnp.moveaxis(py_rows, 0, 1), boundary
-    )
-    return res, scores
+        return forward_rows_cuda(px_rows, py_rows, boundary, lo=lo, K=K)
+    return _forward_rows_xla(px_rows, py_rows, boundary, lo=lo, K=K)
 
 
 def _rows_scores_only(px_rows, py_rows, boundary, lo, K, impl):
-    resolved = _rows_resolved(impl)
-    if resolved == "xla":
-        # carry-harvest variant: never materializes the lattice
-        return _forward_scores_rows_xla(px_rows, py_rows, boundary, lo=lo, K=K)
-    _, scores = _rows_forward(px_rows, py_rows, boundary, lo, K, impl)
-    return scores
+    if _use_cuda(impl, px_rows, py_rows):
+        return _rows_forward(px_rows, py_rows, boundary, lo, K, impl)[1]
+    return _forward_rows_xla(
+        px_rows, py_rows, boundary, lo=lo, K=K, keep_p=False
+    )[1]
 
 
-def _rows_backward(px_rows, py_rows, res, boundary, ans_grad, lo, K, impl):
-    resolved = _rows_resolved(impl)
-    if resolved == "pallas":
-        from .kernels.wavefront import backward_rows_pallas
+def _rows_backward(px_rows, py_rows, p_rows, boundary, ans_grad, lo, K, impl):
+    if _use_cuda(impl, px_rows, py_rows):
+        from .kernels.mutual_information import backward_rows_cuda
 
-        return backward_rows_pallas(
-            px_rows, py_rows, res, boundary, ans_grad, lo=lo, K=K
+        return backward_rows_cuda(
+            px_rows, py_rows, p_rows, boundary, ans_grad, lo=lo, K=K
         )
-    if resolved == "xla":
-        return _backward_rows_xla(
-            px_rows, py_rows, res, boundary, ans_grad, lo=lo, K=K
-        )
-    _, bwd = _get_impl(resolved)
-    modified = px_rows.shape[2] == py_rows.shape[2]
-    if lo is not None:
-        px_rows, py_rows = _mask_rows(
-            px_rows, py_rows, boundary, modified, lo, K
-        )
-    gx, gy = bwd(
-        jnp.moveaxis(px_rows, 0, 1), jnp.moveaxis(py_rows, 0, 1), res,
-        boundary, ans_grad,
+    return _backward_rows_xla(
+        px_rows, py_rows, p_rows, boundary, ans_grad, lo=lo, K=K
     )
-    return jnp.moveaxis(gx, 1, 0), jnp.moveaxis(gy, 1, 0)
 
 
 # --- scores-only rows op (used when calc_gradients=False) ---------------------
@@ -589,39 +393,15 @@ def _mi_rows_scores(px_rows, py_rows, boundary, lo, K, impl):
 
 
 def _mi_rows_scores_fwd(px_rows, py_rows, boundary, lo, K, impl):
-    # This fwd only runs under differentiation (the primal call is the
-    # scores-only carry-harvest).  On the pallas path, run the fused
-    # two-phase kernel NOW: occupancies with seed 1 are the residual and
-    # the bwd is a pure rescale (the backward recursion is linear in its
-    # seed — the tf_fast_rnnt_op.cc:89-111 trick).  One launch, and the
-    # p lattice never reaches HBM.  The residual STRUCTURE (dict key)
-    # statically tags which bwd to run.
-    if _FUSE_SCORES_VJP and _rows_resolved(impl) == "pallas":
-        from .kernels.wavefront import fused_rows_pallas
-
-        out = fused_rows_pallas(
-            px_rows, py_rows, boundary.astype(jnp.int32), lo=lo, K=K
-        )
-        if out is not None:
-            scores, gx_rows, gy_rows = out
-            return scores, {"occ": (gx_rows, gy_rows, boundary, lo)}
-    res, scores = _rows_forward(px_rows, py_rows, boundary, lo, K, impl)
-    return scores, {"p": (px_rows, py_rows, boundary, lo, res)}
+    # only runs under differentiation: keep the p lattice as the residual
+    p_rows, scores = _rows_forward(px_rows, py_rows, boundary, lo, K, impl)
+    return scores, (px_rows, py_rows, boundary, lo, p_rows)
 
 
 def _mi_rows_scores_bwd(K, impl, residuals, ans_grad):
-    if "occ" in residuals:
-        gx_rows, gy_rows, boundary, lo = residuals["occ"]
-        scale = ans_grad[None, :, None].astype(gx_rows.dtype)
-        return (
-            scale * gx_rows,
-            scale * gy_rows,
-            _float0_like(boundary),
-            _f0_or_none(lo),
-        )
-    px_rows, py_rows, boundary, lo, res = residuals["p"]
+    px_rows, py_rows, boundary, lo, p_rows = residuals
     gx_rows, gy_rows = _rows_backward(
-        px_rows, py_rows, res, boundary, ans_grad, lo, K, impl
+        px_rows, py_rows, p_rows, boundary, ans_grad, lo, K, impl
     )
     return gx_rows, gy_rows, _float0_like(boundary), _f0_or_none(lo)
 
@@ -632,37 +412,11 @@ _mi_rows_scores.defvjp(_mi_rows_scores_fwd, _mi_rows_scores_bwd)
 # --- fused scores + occupancy rows op (calc_gradients=True) -------------------
 
 
-# Switches for the fused two-phase kernel (wavefront.fused_rows_pallas) at
-# its two call sites.  DEFAULT OFF — measured round 5 (v5e, paired
-# same-process A/B at the benchmark shape): the fused kernel wins in
-# isolation (315.6 vs 329.4 µs for the split pair) but LOSES ~105 µs
-# fp32 / ~47 µs bf16 inside the full two-stage pipeline.  The scans are
-# VPU-latency-bound with ~60% HBM headroom (BENCH.md roofline), so the
-# ~50 MB of saved p/px/py traffic buys no wall-clock, while computing
-# stage-2 occupancies in the forward region keeps four occupancy
-# residuals alive at once — XLA's memory planner then inserts two 12 MB
-# copy-start/copy-done pairs and peak rises 129 -> 142 MB.  Kept in-tree
-# (tested, GSPMD-wrapped) as the measured variant + escape hatch.
-_FUSE_WITH_GRADS = False  # calc_gradients=True calls (pipeline stage 1)
-_FUSE_SCORES_VJP = False  # vjp of the scores op (pipeline stage 2)
-
-
 def _rows_with_grads_impl(px_rows, py_rows, boundary, lo, K, impl):
-    if _FUSE_WITH_GRADS and _rows_resolved(impl) == "pallas":
-        # fused two-phase kernel: forward + occupancy backward in ONE
-        # launch, p lattice in VMEM scratch (never in HBM) — bit-equal to
-        # the split pair below.  None = shape can't run fused; fall back.
-        from .kernels.wavefront import fused_rows_pallas
-
-        out = fused_rows_pallas(
-            px_rows, py_rows, boundary.astype(jnp.int32), lo=lo, K=K
-        )
-        if out is not None:
-            return out
-    res, scores = _rows_forward(px_rows, py_rows, boundary, lo, K, impl)
+    p_rows, scores = _rows_forward(px_rows, py_rows, boundary, lo, K, impl)
     ones = jnp.ones_like(scores)
     gx_rows, gy_rows = _rows_backward(
-        px_rows, py_rows, res, boundary, ones, lo, K, impl
+        px_rows, py_rows, p_rows, boundary, ones, lo, K, impl
     )
     return scores, gx_rows, gy_rows
 
@@ -716,14 +470,12 @@ def mutual_information_rows(
     major px/py rows, plus ``lo``: optional (B, T) int window starts
     (``ranges[:, :, 0]``) with static width ``s_range`` — the recursion
     then sees ``band_mask_rows(px/py)`` without a masked copy ever being
-    materialized (the kernels mask in-register).
+    materialized (both implementations mask inline).
     """
     if lo is not None and int(s_range) <= 0:
         raise ValueError("banded recursion needs a positive static s_range")
     K = int(s_range)
-    # Same dtype policy as mutual_information_recursion: f64 auto-routes to
-    # the XLA core; explicit pallas+f64 raises (never a silent downcast).
-    impl = _resolve_impl_for_dtype(impl, px_rows.dtype)
+    _check_impl(impl)
     if calc_gradients:
         scores, gx, gy = _mi_rows_with_grads(
             px_rows, py_rows, boundary, lo, K, impl
@@ -829,10 +581,11 @@ def mutual_information_recursion(
         occupancy outputs are NOT differentiable — cotangents flowing into
         them are dropped; only the scores output propagates gradients.
       impl: lattice implementation: "xla" (associative-scan core),
-        "pallas" (TPU wavefront kernel, once registered), or None/"auto".
-        f64 inputs auto-route to "xla" (explicitly requesting pallas
-        with f64 raises); bf16/f16 inputs are treated as narrow STORAGE
-        over an f32 in-register recursion by every impl.
+        "cuda" (GPU wavefront kernels; an error without a CUDA GPU), or
+        None/"auto" ("cuda" on a GPU for the dtypes and shapes it covers,
+        "xla" otherwise).  f64 inputs run on "xla" (explicitly requesting
+        "cuda" with f64 raises); bf16/f16 inputs are treated as narrow
+        STORAGE over an f32 in-register recursion by every impl.
       debug_self_check: if True, verify in-graph that the occupancy
         backward round-trips the seeded cotangent through the lattice
         origin (the reference's always-on kernel debug check,
@@ -852,7 +605,7 @@ def mutual_information_recursion(
     boundary = _normalize_boundary(boundary, B, S, T)
     if boundary.shape != (B, 4):
         raise ValueError(f"boundary shape {boundary.shape} != ({B}, 4)")
-    impl = _resolve_impl_for_dtype(impl, px.dtype)
+    _check_impl(impl)
     if calc_gradients or debug_self_check:
         scores, px_grad, py_grad = _mi_with_grads(px, py, boundary, impl)
         if debug_self_check:
@@ -866,9 +619,7 @@ def mutual_information_recursion(
             bits = jnp.finfo(px.dtype).bits
             tol = 1e-8 if bits > 32 else (1e-2 if bits == 32 else 1e-1)
             if isinstance(err, jax.core.Tracer):
-                # under jit: raise from a host callback (backends without
-                # host-callback support, e.g. remote tunnels, should call
-                # this eagerly — it is a triage tool, not a hot-loop op)
+                # under jit: raise from a host callback
                 jax.debug.callback(_raise_on_roundtrip_error, err, tol)
             else:
                 _raise_on_roundtrip_error(np.asarray(err), tol)
@@ -881,14 +632,11 @@ def mutual_information_recursion(
 def cummin(x: jax.Array, axis: int = -1) -> jax.Array:
     """Inclusive running minimum along ``axis``.
 
-    TPU-native replacement for the reference's Blelloch-scan CUDA kernel
+    Replacement for the reference's Blelloch-scan CUDA kernel
     (mutual_information_cuda.cu:876-1012 + the ``Cummin`` op,
-    tf_fast_rnnt_op.cc:135-165): an associative scan.  MEASURED round 3
-    (v5e, (30,1000) int32): the explicit associative_scan beats
-    ``lax.cummin``'s lowering 116 µs vs 177 µs for the whole ranges pass
-    — keep the scan.
+    tf_fast_rnnt_op.cc:135-165): ``lax.cummin``, one reduce-window op.
     """
-    return jax.lax.associative_scan(jnp.minimum, x, axis=axis % x.ndim)
+    return jax.lax.cummin(x, axis=axis % x.ndim)
 
 
 def monotonic_lower_bound(x: jax.Array, axis: int = -1) -> jax.Array:
@@ -896,7 +644,10 @@ def monotonic_lower_bound(x: jax.Array, axis: int = -1) -> jax.Array:
 
     Equivalent to the reference ``_monotonic_lower_bound``
     (rnnt_loss.py:553-585): x_out[i] = min(x[i], x[i+1], ..., x[-1]).
+
+    ``lax.cummin`` (a reduce-window op), not ``lax.associative_scan``: XLA
+    for CUDA miscompiles a reverse associative min-scan whose input is
+    computed from another one, which the prune-range repair
+    (ops/pruning.py:adjust_pruning_lower_bound) chains.
     """
-    return jax.lax.associative_scan(
-        jnp.minimum, x, axis=axis % x.ndim, reverse=True
-    )
+    return jax.lax.cummin(x, axis=axis % x.ndim, reverse=True)

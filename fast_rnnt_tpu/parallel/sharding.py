@@ -1,19 +1,20 @@
-"""Data-parallel distribution over TPU meshes.
+"""Data-parallel distribution over device meshes.
 
 The reference has NO distribution machinery at all (SURVEY.md §2.4: no
 tf.distribute, no NCCL/MPI, single-GPU only) — this subsystem is designed
-from scratch for TPU pods:
+from scratch:
 
   * The RNN-T loss is per-utterance: every lattice is independent along the
     batch axis, so the natural (and optimal) distribution is batch/data
     parallelism — utterances sharded across chips, the loss computed fully
-    locally, and only model-gradient psum crossing ICI/DCN.
+    locally, and only the model-gradient psum crossing devices (NVLink
+    within a host).
   * We express it with `jax.sharding.Mesh` + NamedSharding (GSPMD inserts
     nothing for the loss itself — there is no cross-batch math) and provide
     an explicit `shard_map` wrapper for users who want guaranteed-local
     execution with a hand-placed psum.
 
-All helpers work identically on a real pod slice, a single chip, or a
+All helpers work identically on several GPUs, a single one, or a
 virtual CPU mesh (XLA_FLAGS=--xla_force_host_platform_device_count=N).
 """
 
@@ -108,7 +109,7 @@ def data_parallel_value_and_grad(
     ``loss_fn(params, *batch)`` must return a scalar that is a SUM over its
     (local) batch shard.  Parameters are replicated; batch args are sharded
     on axis 0.  Returns ``(loss, grads)`` where both are psum'd across the
-    mesh — the only collective in the whole pipeline, riding ICI.
+    mesh — the only collective in the whole pipeline.
     """
 
     def local_step(params, batch):

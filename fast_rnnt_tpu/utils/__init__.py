@@ -1,10 +1,11 @@
 from .profiling import (
     annotate,
     benchmark_fn,
-    benchmark_on_device,
     collective_census,
-    compiled_memory_mb,
     device_memory_stats,
+    gpu_identity,
+    require_gpu,
+    setup_compile_cache,
     trace_to,
 )
 from .validation import check_rnnt_inputs, checkify_rnnt_inputs
@@ -12,10 +13,11 @@ from .validation import check_rnnt_inputs, checkify_rnnt_inputs
 __all__ = [
     "annotate",
     "benchmark_fn",
-    "benchmark_on_device",
     "collective_census",
-    "compiled_memory_mb",
     "device_memory_stats",
+    "gpu_identity",
+    "require_gpu",
+    "setup_compile_cache",
     "trace_to",
     "check_rnnt_inputs",
     "checkify_rnnt_inputs",

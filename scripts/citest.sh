@@ -7,12 +7,11 @@
 # Chunks 1-2 name the slow compile-heavy files explicitly; chunk 3 runs
 # EVERYTHING ELSE under tests/ via --ignore, so a newly added test file
 # (or one dropped from the explicit lists) is always collected — a gate
-# can never silently fall out of CI again (round-3 lesson: the TPU
-# cross-lowering gate was dead at HEAD because this script hard-listed
-# files and never ran it).
+# can never silently fall out of CI again (a gate once went dead because
+# this script hard-listed files and never ran it).
 set -e
 M="${1:-not slow}"
-CHUNK1="tests/test_recursion.py tests/test_golden.py tests/test_pallas_kernels.py tests/test_alignment.py"
+CHUNK1="tests/test_recursion.py tests/test_golden.py tests/test_recursion_core.py tests/test_alignment.py"
 CHUNK2="tests/test_lattice.py tests/test_losses.py tests/test_pruning.py tests/test_edge_cases.py tests/test_serving.py"
 python -m pytest $CHUNK1 -q -m "$M"
 python -m pytest $CHUNK2 -q -m "$M"

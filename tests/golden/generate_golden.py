@@ -2,7 +2,7 @@
 
 Independence argument
 ---------------------
-Every other oracle in this repo (numpy loop, C++ csrc, XLA scan, Pallas
+Every other oracle in this repo (numpy loop, C++ csrc, XLA scan, GPU
 kernels) evaluates the same dynamic-programming recursion
 
     p[s, t] = logaddexp(p[s-1, t] + px[s-1, t], p[s, t-1] + py[s, t-1])

@@ -3,7 +3,7 @@ path enumeration (tests/golden/generate_golden.py — float64, no DP
 recursion anywhere in the derivation).
 
 This closes the in-tree-oracle circularity: the four in-tree
-implementations (numpy loop oracle, C++ csrc, XLA scan, Pallas kernels)
+implementations (numpy loop oracle, C++ csrc, XLA scan, GPU kernels)
 all evaluate the same recursion; the golden file is derived from the
 path-sum *definition* instead, so agreement here validates the recursion
 itself, not just its transcriptions.
@@ -52,7 +52,7 @@ def test_lattice_build_matches_golden(path):
 
 @pytest.mark.parametrize("path", GENERIC_FILES, ids=os.path.basename)
 def test_recursion_impls_match_golden(path):
-    """XLA scan + Pallas kernels vs path-enumeration scores/occupancies.
+    """Default path + XLA scan core vs path-enumeration scores/occupancies.
 
     The golden (px, py) are fed directly so this isolates the recursion;
     boundary masking inside the impls must reproduce the enumeration's
@@ -62,12 +62,7 @@ def test_recursion_impls_match_golden(path):
     px = jnp.asarray(g["px"], jnp.float32)
     py = jnp.asarray(g["py"], jnp.float32)
     boundary = jnp.asarray(g["boundary"])
-    impls = ["xla"]
-    from fast_rnnt_tpu.ops.kernels import register
-
-    register(default=False)  # auto interpret: live per-call backend check
-    impls.append("pallas")
-    for impl in impls:
+    for impl in (None, "xla"):
         scores, (gx, gy) = frt.mutual_information_recursion(
             px, py, boundary, calc_gradients=True, impl=impl
         )
@@ -128,16 +123,14 @@ def test_banded_recursion_matches_golden():
     anywhere in the derivation."""
     path = os.path.join(HERE, "config1_banded_K3.npz")
     g = _load(path)
-    from fast_rnnt_tpu.ops.kernels import register
     from fast_rnnt_tpu.ops.recursion import mutual_information_rows
 
-    register(default=False)  # auto interpret: live per-call backend check
     px_r = jnp.moveaxis(jnp.asarray(g["px"], jnp.float32), 1, 0)
     py_r = jnp.moveaxis(jnp.asarray(g["py"], jnp.float32), 1, 0)
     bnd = jnp.asarray(g["boundary"])
     lo = jnp.asarray(g["lo"])
     K = int(g["K"])
-    for impl in ("xla", "pallas"):
+    for impl in (None, "xla"):
         scores, (gx, gy) = mutual_information_rows(
             px_r, py_r, bnd, lo=lo, s_range=K, calc_gradients=True, impl=impl
         )

@@ -1,20 +1,22 @@
 """The bench parity gate itself (utils/parity.py): runs the four checks
-at reduced shapes with the Pallas (interpret) implementation forced as
-the process default, so the default-vs-xla comparison is a real
-two-implementation cross-check even on CPU."""
+at reduced shapes on the default path (the XLA core on the CPU; the GPU
+kernels on a card) and checks every metric carries a limit and a
+reason."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fast_rnnt_tpu.ops import recursion as rec
-from fast_rnnt_tpu.ops.kernels import register
-from fast_rnnt_tpu.utils.parity import TOLERANCES, enforce_parity, onchip_parity_gate
+from fast_rnnt_tpu.utils.parity import (
+    TOLERANCES,
+    describe,
+    enforce_parity,
+    onchip_parity_gate,
+)
 
 
 def test_parity_gate_passes():
-    register(default=False, interpret=True)
     rng = np.random.default_rng(0)
     B, T, S, C = 4, 64, 12, 32
     am = jnp.asarray(rng.normal(size=(B, T, C)).astype(np.float32))
@@ -25,14 +27,12 @@ def test_parity_gate_passes():
     boundary = jnp.asarray(
         np.stack([np.zeros(B, np.int32), np.zeros(B, np.int32), s_end, t_end], 1)
     )
-    old = rec._DEFAULT_IMPL
-    try:
-        rec._DEFAULT_IMPL = "pallas"
-        parity = onchip_parity_gate(am, lm, symbols, boundary, s_range=4)
-    finally:
-        rec._DEFAULT_IMPL = old
+    parity = onchip_parity_gate(am, lm, symbols, boundary, s_range=4)
     assert set(TOLERANCES) <= set(parity)
     assert parity["golden_cases"] == 5
+    lines = describe(parity)
+    assert set(lines) == set(TOLERANCES)
+    assert all("(" in line for line in lines.values())
     enforce_parity(parity)  # must not raise
 
 

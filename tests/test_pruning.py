@@ -114,103 +114,83 @@ def test_s_range_too_small_raises():
         get_rnnt_prune_ranges(px_grad, py_grad, boundary, 1)
 
 
-def test_window_argmax_kernel_matches_xla():
-    """The Pallas rolling-window argmax (kernels/ranges.py) must match the
-    cumsum+argmax XLA formulation exactly — including first-max
-    tie-breaking — across window widths and both px widths."""
-    import jax.numpy as jnp
+def _window_argmax_np(gx, gy, K):
+    """Brute-force window argmax (rnnt_loss.py:722-729): for each frame
+    the start k maximizing sum(gy[k:k+K]) - gx[k-1] (gx[-1] = 0), first
+    maximum on ties."""
+    S1, B, T = gy.shape
+    gx_pad = np.concatenate([np.zeros((1, B, gx.shape[2]), gx.dtype), gx])
+    score = np.stack(
+        [gy[k:k + K].sum(0) - gx_pad[k, :, :T] for k in range(S1 - K + 1)]
+    )
+    return np.argmax(score, axis=0).astype(np.int32)
 
-    from fast_rnnt_tpu.ops.kernels.ranges import window_argmax_rows_pallas
+
+def _adjust_np(s_begin, step):
+    T = s_begin.shape[1]
+    ramp = (step - 1) * np.arange(T)
+    mlb = lambda v: np.minimum.accumulate(v[:, ::-1], axis=1)[:, ::-1]
+    v = -(mlb(s_begin) - ramp)
+    v = np.maximum(mlb(v), 0)
+    return (-(v - ramp)).astype(np.int32)
+
+
+def test_window_argmax_matches_numpy_oracle():
+    """The cumsum+argmax formulation equals brute-force window sums,
+    including first-max tie-breaking, across window widths and both px
+    widths (values on a 1/4 grid so every sum is exact)."""
     from fast_rnnt_tpu.ops.pruning import _window_argmax
 
     rng = np.random.default_rng(17)
     for S, B, T, regular in [(6, 3, 10, True), (9, 2, 7, False)]:
         S1 = S + 1
         T1 = T + 1 if regular else T
-        gx = jnp.asarray(rng.random((S, B, T1)).astype(np.float32))
-        gy = jnp.asarray(rng.random((S1, B, T)).astype(np.float32))
-        # exact ties to pin first-max semantics
-        gy = jnp.round(gy * 4) / 4
-        gx = jnp.round(gx * 4) / 4
+        gx = np.round(rng.random((S, B, T1)) * 4).astype(np.float32) / 4
+        gy = np.round(rng.random((S1, B, T)) * 4).astype(np.float32) / 4
         for K in (1, 2, 3, S1):
-            want = np.asarray(_window_argmax_xla(gx, gy, K))
-            got = np.asarray(
-                window_argmax_rows_pallas(gy, gx, K, interpret=True)
-            )
+            want = _window_argmax_np(gx, gy, K)
+            got = np.asarray(_window_argmax(jnp.asarray(gx), jnp.asarray(gy), K))
             np.testing.assert_array_equal(got, want, err_msg=f"S={S} K={K}")
 
 
-def _window_argmax_xla(px_grad_rows, py_grad_rows, s_range):
-    import jax.numpy as jnp
-
-    S1, B, T = py_grad_rows.shape
-    T1 = px_grad_rows.shape[2]
-    cumsum = jnp.cumsum(py_grad_rows, axis=0)
-    cumsum = jnp.concatenate(
-        [jnp.zeros((1, B, T), dtype=cumsum.dtype), cumsum], axis=0
-    )
-    blk = cumsum[s_range:] - cumsum[: S1 - s_range + 1]
-    px_pad = jnp.concatenate(
-        [jnp.zeros((1, B, T1), dtype=px_grad_rows.dtype), px_grad_rows], axis=0
-    )
-    final = blk - px_pad[: S1 - s_range + 1, :, :T]
-    return jnp.argmax(final, axis=0).astype(jnp.int32)
-
-
-def test_window_argmax_fused_post_matches_xla_pipeline():
-    """The kernel's fused post-processing (boundary padding + the
-    monotone / step-bound repair applied in-register at the final grid
-    step) must reproduce get_rnnt_prune_ranges_rows' XLA post path
-    exactly, for both rnnt shapes (adjust step 2 vs s_range) and ragged
-    boundaries."""
-    import jax
-    import jax.numpy as jnp
-
-    from fast_rnnt_tpu.ops.kernels.ranges import window_argmax_rows_pallas
-    from fast_rnnt_tpu.ops.pruning import adjust_pruning_lower_bound
+def test_prune_ranges_rows_match_numpy_pipeline():
+    """get_rnnt_prune_ranges_rows = window argmax + end-of-utterance padding
+    + monotone/step-bound repair, each written out in numpy, for both rnnt
+    shapes (adjust step 2 vs s_range) and ragged boundaries."""
+    from fast_rnnt_tpu import get_rnnt_prune_ranges_rows
 
     rng = np.random.default_rng(23)
     for S, B, T, regular in [(6, 3, 12, True), (9, 5, 9, False), (4, 2, 140, True),
                              (4, 2, 128, True), (5, 9, 256, False)]:
         S1 = S + 1
         T1 = T + 1 if regular else T
-        gx = jnp.asarray(rng.random((S, B, T1)).astype(np.float32))
-        gy = jnp.asarray(rng.random((S1, B, T)).astype(np.float32))
+        gx = np.round(rng.random((S, B, T1)) * 4).astype(np.float32) / 4
+        gy = np.round(rng.random((S1, B, T)) * 4).astype(np.float32) / 4
         se = rng.integers(2, S + 1, size=B).astype(np.int32)
         te = np.clip(rng.integers(3, T + 1, size=B), 3, T).astype(np.int32)
-        boundary = jnp.asarray(
-            np.stack([np.zeros(B, np.int32), np.zeros(B, np.int32), se, te],
-                     axis=1)
+        boundary = np.stack(
+            [np.zeros(B, np.int32), np.zeros(B, np.int32), se, te], axis=1
         )
         for K in (2, 3, S1):
-            adjust_step = K if regular else 2
-            # reference: raw kernel argmax + the XLA post-processing
-            raw = window_argmax_rows_pallas(gy, gx, K, interpret=True)
-            t_idx = jax.lax.broadcasted_iota(jnp.int32, (B, T), 1)
-            mask = t_idx < (boundary[:, 3][:, None] - 1)
-            pad = jnp.maximum(boundary[:, 2][:, None] - K + 1, 0)
-            want = jnp.where(mask, raw, pad)
-            want = np.asarray(adjust_pruning_lower_bound(want, adjust_step))
-            got = np.asarray(
-                window_argmax_rows_pallas(
-                    gy, gx, K, interpret=True,
-                    boundary=boundary, adjust_step=adjust_step,
-                )
-            )
+            step = K if regular else 2
+            raw = _window_argmax_np(gx, gy, K)
+            mask = np.arange(T)[None, :] < (te[:, None] - 1)
+            pad = np.maximum(se[:, None] - K + 1, 0)
+            want = _adjust_np(np.where(mask, raw, pad), step)
+            got = np.asarray(get_rnnt_prune_ranges_rows(
+                jnp.asarray(gx), jnp.asarray(gy), jnp.asarray(boundary), K
+            ))
             np.testing.assert_array_equal(
-                got, want, err_msg=f"S={S} T={T} K={K} regular={regular}"
+                got, want[:, :, None] + np.arange(K),
+                err_msg=f"S={S} T={T} K={K} regular={regular}",
             )
 
 
 def test_window_argmax_k1_exact_no_drift():
-    """K=1 window sums must be EXACT on both paths (no rolling-update or
-    cumsum-difference float drift): with width-1 windows the score is a
-    direct read, so pallas and XLA argmaxes must agree bit-for-bit even
-    on adversarially near-tied random occupancies (round-3 fuzz finding:
-    the drift flipped near-tie argmaxes and moved the pruned band)."""
-    import jax.numpy as jnp
-
-    from fast_rnnt_tpu.ops.kernels.ranges import window_argmax_rows_pallas
+    """K=1 window sums must be EXACT (no cumsum-difference float drift):
+    with width-1 windows the score is a direct read, so the argmax equals
+    numpy's bit-for-bit even on adversarially near-tied random occupancies
+    (the drift used to flip near-tie argmaxes and move the pruned band)."""
     from fast_rnnt_tpu.ops.pruning import _window_argmax
 
     rng = np.random.default_rng(11)
@@ -221,7 +201,7 @@ def test_window_argmax_k1_exact_no_drift():
         gy[rng.random(gy.shape) < 0.7] = 0.0
         gx = rng.random((S, B, T)).astype(np.float32) * 1e-6
         gx[rng.random(gx.shape) < 0.7] = 0.0
-        gyj, gxj = jnp.asarray(gy), jnp.asarray(gx)
-        got = np.asarray(window_argmax_rows_pallas(gyj, gxj, 1, interpret=True))
-        want = np.asarray(_window_argmax(gxj, gyj, 1, impl="xla"))
-        np.testing.assert_array_equal(got, want, err_msg=f"S={S} T={T}")
+        got = np.asarray(_window_argmax(jnp.asarray(gx), jnp.asarray(gy), 1))
+        np.testing.assert_array_equal(
+            got, _window_argmax_np(gx, gy, 1), err_msg=f"S={S} T={T}"
+        )

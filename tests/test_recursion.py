@@ -265,12 +265,9 @@ def test_fuzz_boundaries_incl_nonzero_begins(trials):
     """Property fuzz: random shapes and FULL random boundaries — including
     nonzero s_begin/t_begin, which the reference supports
     (mutual_information_cuda.cu:232-268) — against the loop oracle, for
-    both the XLA core and the Pallas kernels (interpret mode).  6 trials
-    in the default run; the full 12 behind -m slow (every trial is a
-    fresh set of XLA compiles on the one slow CI core)."""
-    from fast_rnnt_tpu.ops.kernels import register
-
-    register(default=False)  # auto interpret: live per-call backend check
+    the default implementation and the XLA core.  6 trials in the default
+    run; the full 12 behind -m slow (every trial is a fresh set of XLA
+    compiles)."""
     rng = np.random.default_rng(2024)
     for trial in range(trials):
         B = int(rng.integers(1, 4))
@@ -288,7 +285,7 @@ def test_fuzz_boundaries_incl_nonzero_begins(trials):
         boundary = np.stack([sb, tb, se, te], axis=1).astype(np.int32)
 
         ref_scores, ref_gx, ref_gy, _ = mi_loop(px, py, boundary)
-        for impl in ("xla", "pallas"):
+        for impl in (None, "xla"):
             s, (gx, gy) = mutual_information_recursion(
                 jnp.asarray(px), jnp.asarray(py), jnp.asarray(boundary),
                 calc_gradients=True, impl=impl,
@@ -308,9 +305,10 @@ def test_fuzz_boundaries_incl_nonzero_begins(trials):
 
 
 def test_f64_dtype_policy():
-    """f64 inputs: auto-dispatch must route to the dtype-generic XLA core
-    (never trace the f32-only Pallas kernels), and an explicit
-    impl="pallas" request must raise instead of silently downcasting."""
+    """f64 inputs: auto-dispatch runs the dtype-generic XLA core even where
+    the GPU kernels would be chosen (they cover float32/bfloat16 storage
+    only), and an explicit impl="cuda" request raises instead of silently
+    downcasting."""
     from fast_rnnt_tpu.ops import recursion as rec
 
     with jax.enable_x64(True):
@@ -320,39 +318,29 @@ def test_f64_dtype_policy():
         py = jnp.asarray(rng.normal(size=(B, S + 1, T)) - 1.0)
         assert px.dtype == jnp.float64
 
-        # force the auto default to "pallas" to prove the dtype reroute
-        old = rec._DEFAULT_IMPL
-        try:
-            rec._DEFAULT_IMPL = "pallas"
-            assert rec._resolve_impl_for_dtype(None, px.dtype) == "xla"
-            s = mutual_information_recursion(px, py, None)  # must not trace pallas
-            assert s.dtype == jnp.float64
-            ref_s, _, _, _ = mi_loop(px, py, None)
-            np.testing.assert_allclose(np.asarray(s), ref_s, atol=1e-12)
-        finally:
-            rec._DEFAULT_IMPL = old
+        rows = (jnp.moveaxis(px, 1, 0), jnp.moveaxis(py, 1, 0))
+        assert not rec._use_cuda(None, *rows)
+        s = mutual_information_recursion(px, py, None)
+        assert s.dtype == jnp.float64
+        ref_s, _, _, _ = mi_loop(px, py, None)
+        np.testing.assert_allclose(np.asarray(s), ref_s, atol=1e-12)
 
         with pytest.raises(TypeError, match="float32"):
-            mutual_information_recursion(px, py, None, impl="pallas")
+            mutual_information_recursion(px, py, None, impl="cuda")
 
 
-def test_bf16_storage_through_pallas():
-    """bf16 px/py are a supported STORAGE dtype for the Pallas kernels
-    (upcast in-register, f32 recursion): explicit impl="pallas" must work
-    and track the f32 result to bf16 tolerance."""
-    from fast_rnnt_tpu.ops.kernels import register
-
-    register(default=False)  # auto interpret: live per-call backend check
+def test_bf16_storage_default_path():
+    """bf16 px/py are a supported STORAGE dtype (upcast in-register, f32
+    recursion): the default path must track the f32 result to bf16
+    tolerance, keep f32 scores and return occupancies in bf16."""
     rng = np.random.default_rng(21)
     B, S, T = 2, 5, 9
     px, py = _random_pxpy(rng, B, S, T)
-    s32 = mutual_information_recursion(
-        jnp.asarray(px), jnp.asarray(py), None, impl="pallas"
-    )
+    s32 = mutual_information_recursion(jnp.asarray(px), jnp.asarray(py), None)
     sbf, (gx, gy) = mutual_information_recursion(
         jnp.asarray(px).astype(jnp.bfloat16),
         jnp.asarray(py).astype(jnp.bfloat16),
-        None, calc_gradients=True, impl="pallas",
+        None, calc_gradients=True,
     )
     assert sbf.dtype == jnp.float32  # scores always f32
     assert gx.dtype == jnp.bfloat16  # occupancies inherit storage dtype
@@ -438,8 +426,7 @@ def test_debug_self_check_bf16_storage_no_spurious_raise():
 
 def test_rows_api_f64_dtype_policy():
     """mutual_information_rows applies the same dtype policy as the
-    (B,S,T)-major API: f64 auto-routes to the XLA core even when the
-    process default is pallas; explicit pallas raises (ADVICE r2)."""
+    (B,S,T)-major API: f64 runs on the XLA core; explicit "cuda" raises."""
     from fast_rnnt_tpu.ops import recursion as rec
     from fast_rnnt_tpu.ops.recursion import mutual_information_rows
 
@@ -451,12 +438,8 @@ def test_rows_api_f64_dtype_policy():
         py_rows = jnp.moveaxis(jnp.asarray(py, jnp.float64), 1, 0)
         boundary = jnp.asarray(_random_boundary(rng, B, S, T))
 
-        old = rec._DEFAULT_IMPL
-        try:
-            rec._DEFAULT_IMPL = "pallas"
-            s = mutual_information_rows(px_rows, py_rows, boundary)
-            assert s.dtype == jnp.float64
-        finally:
-            rec._DEFAULT_IMPL = old
+        assert not rec._use_cuda(None, px_rows, py_rows)
+        s = mutual_information_rows(px_rows, py_rows, boundary)
+        assert s.dtype == jnp.float64
         with pytest.raises(TypeError, match="float32"):
-            mutual_information_rows(px_rows, py_rows, boundary, impl="pallas")
+            mutual_information_rows(px_rows, py_rows, boundary, impl="cuda")

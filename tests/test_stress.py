@@ -128,75 +128,3 @@ def test_pruned_loss_decreases_with_wider_windows():
             )
         )
     assert all(a >= b - 1e-2 for a, b in zip(losses, losses[1:])), losses
-
-
-@pytest.mark.slow
-def test_component_fuzz_cpu_cases():
-    """A few cases of the on-chip fuzz harness's component-isolated sweep
-    (benchmarks/fuzz_onchip.py) on the CPU backend: build / stage-1 /
-    tie-aware ranges / stage-2, random shapes and rnnt_types.  The full
-    sweep runs on hardware; this keeps the harness itself tested."""
-    import importlib.util
-    import os
-    import sys
-
-    import numpy as np
-
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    spec = importlib.util.spec_from_file_location(
-        "fuzz_onchip", os.path.join(root, "benchmarks", "fuzz_onchip.py"))
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules["fuzz_onchip"] = mod
-    spec.loader.exec_module(mod)
-
-    rng = np.random.default_rng(3)
-    for i in range(2):
-        case = mod.draw(rng)
-        # keep CPU-interpret runtime sane
-        case["am"] = case["am"][:4, :96]
-        case["lm"] = case["lm"][:4, :25]
-        case["syms"] = case["syms"][:4, :24]
-        case["bnd"] = case["bnd"][:4].copy()
-        case["B"], case["T"], case["S"] = (
-            case["am"].shape[0], case["am"].shape[1], 24)
-        case["bnd"][:, 2] = np.minimum(case["bnd"][:, 2], 24)
-        case["bnd"][:, 3] = np.minimum(case["bnd"][:, 3], 96)
-        case["bnd"][:, 3] = np.maximum(case["bnd"][:, 3], case["bnd"][:, 2] + 2)
-        case["s_range"] = min(case["s_range"], 24)
-        cfg, errs, fail = mod.run_case(case, i)
-        assert fail is None, (fail, cfg, errs)
-
-
-@pytest.mark.slow
-def test_e2e_fuzz_cpu_cases():
-    """Two cases of the fuzz harness's END-TO-END arm (round 4): fused
-    rnnt_loss_{simple,smoothed}_pruned with delay_penalty and smoothing
-    scales vs the materialized reference-shaped pipeline, on CPU."""
-    import importlib.util
-    import os
-    import sys
-
-    import numpy as np
-
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    spec = importlib.util.spec_from_file_location(
-        "fuzz_onchip", os.path.join(root, "benchmarks", "fuzz_onchip.py"))
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules["fuzz_onchip"] = mod
-    spec.loader.exec_module(mod)
-
-    rng = np.random.default_rng(7)
-    for i in range(2):
-        case = mod.draw_e2e(rng)
-        case["am"] = case["am"][:3, :80]
-        case["lm"] = case["lm"][:3, :13]
-        case["syms"] = case["syms"][:3, :12]
-        case["bnd"] = case["bnd"][:3].copy()
-        case["B"], case["T"], case["S"] = 3, 80, 12
-        case["bnd"][:, 2] = np.minimum(case["bnd"][:, 2], 12)
-        case["bnd"][:, 2] = np.maximum(case["bnd"][:, 2], 2)
-        case["bnd"][:, 3] = np.minimum(case["bnd"][:, 3], 80)
-        case["bnd"][:, 3] = np.maximum(case["bnd"][:, 3], case["bnd"][:, 2] + 2)
-        case["s_range"] = max(2, min(case["s_range"], 6))
-        cfg, errs, fail = mod.run_case_e2e(case, i)
-        assert fail is None, (fail, cfg, errs)

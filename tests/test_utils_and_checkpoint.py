@@ -53,8 +53,11 @@ def test_benchmark_fn_runs():
     f = jax.jit(lambda x: jnp.sum(x * 2))
     dt = benchmark_fn(f, jnp.ones((128, 128)), iters=3, warmup=1)
     assert dt > 0
-    stats = device_memory_stats()
-    assert isinstance(stats, dict)
+    if jax.devices()[0].memory_stats() is None:  # the CPU client keeps none
+        with pytest.raises(RuntimeError, match="memory_stats"):
+            device_memory_stats()
+    else:
+        assert device_memory_stats()["peak_mb_in_use"] > 0
 
 
 def test_checkpoint_roundtrip(tmp_path):
