@@ -68,6 +68,13 @@ def supports(px_rows: jax.Array, py_rows: jax.Array) -> bool:
     )
 
 
+def _f32(x: jax.Array) -> jax.Array:
+    # The kernels read float32: casting bf16 storage here, where XLA fuses
+    # the cast into neighbouring ops, measured faster than loading bf16 in
+    # the kernel (PERF.md, PR 1).
+    return x.astype(jnp.float32)
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -188,7 +195,8 @@ def forward_rows_cuda(
     """Returns (p_rows [S+1, B, T+1] float32, scores [B] float32)."""
     _register()
     return _forward_call(int(K) if lo is not None else 0)(
-        px_rows, py_rows, boundary.astype(jnp.int32), _lo_or_dummy(lo, py_rows)
+        _f32(px_rows), _f32(py_rows), boundary.astype(jnp.int32),
+        _lo_or_dummy(lo, py_rows),
     )
 
 
@@ -203,10 +211,11 @@ def backward_rows_cuda(
 ) -> Tuple[jax.Array, jax.Array]:
     """Returns the occupancies (px_grad, py_grad) in the storage dtype."""
     _register()
-    return _backward_call(int(K) if lo is not None else 0)(
-        px_rows, py_rows, p_rows, boundary.astype(jnp.int32),
+    gx, gy = _backward_call(int(K) if lo is not None else 0)(
+        _f32(px_rows), _f32(py_rows), p_rows, boundary.astype(jnp.int32),
         _lo_or_dummy(lo, py_rows), ans_grad.astype(jnp.float32),
     )
+    return gx.astype(px_rows.dtype), gy.astype(py_rows.dtype)
 
 
 if __name__ == "__main__":

@@ -118,7 +118,7 @@ def _apply_boundary_mask(
 
 def _promote_subf32(x: jax.Array) -> jax.Array:
     """Recursion math runs at >= f32 (the bf16 mixed-precision mode only
-    narrows the storage; matches the GPU kernels' in-register upcast)."""
+    narrows the storage; the GPU kernels likewise see float32)."""
     if jnp.issubdtype(x.dtype, jnp.floating) and jnp.finfo(x.dtype).bits < 32:
         return x.astype(jnp.float32)
     return x

@@ -79,10 +79,13 @@ def test_uncovered_inputs_and_unknown_impl():
 
 
 @pytest.mark.parametrize("modified", [False, True])
-def test_kernel_wrapper_shapes(modified):
-    """The FFI calls' declared results: p lattice [S+1, B, T+1] and scores
-    [B] in float32 whatever the storage; occupancies in the storage dtype
-    and the shapes of px/py; a dummy band when none is given."""
+def test_kernel_wrapper_shapes(modified, monkeypatch):
+    """The kernel entry points' results (registration stubbed; shapes
+    only): p lattice [S+1, B, T+1] and scores [B] in float32 whatever the
+    storage; occupancies in the storage dtype and the shapes of px/py; the
+    FFI calls themselves see float32 operands and a dummy band when none
+    is given."""
+    monkeypatch.setattr(gpu, "_register", lambda: None)
     rng = np.random.default_rng(3)
     B, S, T = 3, 5, 11
     for dtype in (jnp.float32, jnp.bfloat16):
@@ -90,14 +93,19 @@ def test_kernel_wrapper_shapes(modified):
         px, py = px.astype(dtype), py.astype(dtype)
         lo = gpu._lo_or_dummy(None, py)
         assert lo.shape == (B, T) and lo.dtype == jnp.int32
-        p, sc = jax.eval_shape(gpu._forward_call(0), px, py, bnd, lo)
+        p, sc = jax.eval_shape(gpu.forward_rows_cuda, px, py, bnd)
         assert (p.shape, p.dtype) == ((S + 1, B, T + 1), jnp.float32)
         assert (sc.shape, sc.dtype) == ((B,), jnp.float32)
         gx, gy = jax.eval_shape(
-            gpu._backward_call(3), px, py, p, bnd, lo, jnp.ones((B,))
+            lambda a, b, q: gpu.backward_rows_cuda(
+                a, b, q, bnd, jnp.ones((B,)), lo=lo, K=3),
+            px, py, p,
         )
         assert (gx.shape, gx.dtype) == (px.shape, dtype)
         assert (gy.shape, gy.dtype) == (py.shape, dtype)
+        jaxpr = str(jax.make_jaxpr(gpu.forward_rows_cuda)(px, py, bnd))
+        assert "frt_mi_forward" in jaxpr
+        assert f"f32[{S},{B},{px.shape[2]}]" in jaxpr
 
 
 @pytest.mark.parametrize("world", ["explicit", "auto"])

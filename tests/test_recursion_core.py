@@ -128,7 +128,7 @@ def test_banded_core_matches_cpp(modified):
 
 @pytest.mark.parametrize("modified", [False, True])
 def test_bf16_storage_core_matches_oracle(modified):
-    """bf16 storage widens in registers: the recursion on bf16-rounded
+    """bf16 storage is widened to float32: the recursion on bf16-rounded
     inputs equals the float64 oracle on the same rounded values (f32
     accuracy), and the occupancies come back in bf16."""
     rng = np.random.default_rng(123)
