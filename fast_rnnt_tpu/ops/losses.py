@@ -359,8 +359,8 @@ def rnnt_loss_pruned_simple(
 
     but never materializes the [B, T, s_range, C] pruned logits — the band
     is masked directly in [B, S+1, T] lattice space (see
-    :func:`get_rnnt_logprobs_pruned_simple`).  Use :func:`rnnt_loss_pruned` when the
-    joiner is a real network.
+    :func:`get_rnnt_logprobs_pruned_simple`).  Use :func:`rnnt_loss_pruned`
+    when the joiner is a real network.
     """
     check_rnnt_inputs(
         lm=lm, am=am, symbols=symbols,
@@ -475,10 +475,9 @@ def rnnt_loss_simple_pruned(
         px_simple_rows, boundary, rnnt_type, delay_penalty
     )
     if lattice_dtype is not None:
-        # bf16 mixed-precision mode: the lattice's HBM copies are stored
+        # bf16 mixed-precision mode: the lattice's stored copies are
         # narrow (the casts fuse into the assembly writes) while every
-        # recursion computes in f32 in-register — ~2x less lattice traffic
-        # on the HBM-bound step at ~1e-3 relative loss error
+        # recursion computes in at least f32, at ~1e-3 relative loss error
         px_simple_rows = px_simple_rows.astype(lattice_dtype)
         px0_rows = px0_rows.astype(lattice_dtype)
         py_rows = py_rows.astype(lattice_dtype)
