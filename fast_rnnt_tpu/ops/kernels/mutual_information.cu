@@ -22,8 +22,9 @@
 //
 // The kernels take float32 lattices (the Python wrapper widens narrower
 // storage: a bf16 load path measured slower than XLA's cast around the
-// call).  The -inf conventions are those of ops/numerics.py: logaddexp(-inf, -inf) =
-// -inf and safe_exp maps overflowing or NaN exponents to 0.  The forward
+// call).  The -inf conventions are those of ops/numerics.py:
+// logaddexp(-inf, -inf) = -inf and safe_exp maps overflowing or NaN
+// exponents to 0.  The forward
 // carries p in double and the backward forms p + px - p' in double: |p|
 // grows to thousands over a long lattice, where a float32 ulp is ~5e-4, so
 // float32 additions of O(1) arcs would accumulate that error along every
