@@ -1,28 +1,32 @@
-"""On-chip fuzz sweep: compiled Pallas kernels vs the XLA core across
-random shapes/configs, component by component.
+"""Fuzz sweep of the pruned loss on the device: random shapes and settings,
+each case checked component by component and end to end.
 
-The driver bench's parity gate certifies ONE shape per round; this sweep
-covers the compiled-lowering surface the gate can't: varied (B, T, S, C,
-s_range), all three rnnt_types, ragged and full boundaries, f32/bf16
-inputs, forced fused/xla lattice builds.
+    python benchmarks/fuzz_onchip.py [n_cases] [seed]
 
-Each case compares per COMPONENT with the right equivalence notion:
+Cases draw (B, T, S, C, s_range), all three rnnt_types, ragged and full
+boundaries, and fp32 or bf16 inputs.  A component case compares:
 
-  build    px/py rows, fused Pallas build vs XLA einsum build
-  stage1   loss + occupancies, Pallas scan vs XLA scan, SAME rows
-  ranges   Pallas argmax+repair vs XLA, same occupancies — TIE-AWARE:
-           positions may legitimately differ where two windows have
-           near-equal occupancy scores (a raw float near-tie propagates
-           through the monotone repair), so differing positions are only
-           a failure if the two choices' window scores differ by > eps
-  stage2   banded loss + grads, Pallas vs XLA, SAME (Pallas) ranges
+  stage1   scores + occupancies of the default recursion (the CUDA kernels
+           on a Hopper GPU, the XLA scan core elsewhere) vs the XLA core
+           over a float64 copy of the SAME rows
+  ranges   the device's window argmax vs float64 window scores on the host,
+           TIE-AWARE: positions may legitimately differ where two windows
+           have near-equal occupancy scores, so a differing start is a
+           failure only if its window scores more than TIE_EPS below the
+           best; and the device's repair vs the host's repair of the
+           device's own starts, exactly (integer math)
+  stage2   banded loss + input gradients of ``rnnt_loss_pruned_simple`` on
+           the default path vs the XLA core over a float64 lattice, with
+           the SAME ranges
 
-(The first fuzz run of round 3 compared whole pipelines and flagged the
-modified/s_range=1 tie-sensitivity this structure now accounts for; the
-same run motivated exact K=1 window sums in both implementations.)
+An end-to-end case runs the fused pipelines (``rnnt_loss_simple_pruned`` /
+``rnnt_loss_smoothed_pruned``) with delay_penalty and smoothing scales
+against the materialized recipe (stage-1 loss with occupancy gradients ->
+``get_rnnt_prune_ranges`` -> ``do_rnnt_pruning`` -> ``rnnt_loss_pruned`` on
+the [B, T, K, C] logits), loss and input gradients.
 
-Run on the TPU:  python benchmarks/fuzz_onchip.py [n_cases] [seed]
-Exits nonzero on the first failure with the full config.
+Exits nonzero on the first failure with the full config.  ``chip_smoke.py``
+runs a few cases of each arm on the card.
 """
 
 import os as _os
@@ -30,67 +34,44 @@ import sys as _sys
 
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 
-import json
-import sys
+import argparse  # noqa: E402
+import json  # noqa: E402
 
-import jax
-import jax.numpy as jnp
-import numpy as np
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
 
-import fast_rnnt_tpu as frt
-from fast_rnnt_tpu.ops import lattice, pruning, recursion
+import fast_rnnt_tpu as frt  # noqa: E402
+from fast_rnnt_tpu.ops import recursion  # noqa: E402
+from fast_rnnt_tpu.ops.lattice import get_rnnt_logprobs_rows  # noqa: E402
+from fast_rnnt_tpu.utils.parity import (  # noqa: E402
+    ranges_vs_host,
+    xla_float64_reference,
+)
 
-def _cli_int(i, default):
-    try:
-        return int(sys.argv[i])
-    except (IndexError, ValueError):  # also: imported by tests, not CLI
-        return default
-
-
-N_CASES = _cli_int(1, 24)
-SEED = _cli_int(2, 0)
-
-# f32 mode: split matmuls vs HIGHEST einsums, ~2^-16-relative.
-# bf16 mode: the two builds round different intermediates to bf16 (the
-# fused kernel computes exp in f32 then stores bf16; the XLA build's
-# jnp.exp stays bf16), so their outputs differ at the bf16 class
-# (~4e-3 relative) BY CONSTRUCTION — the tolerance reflects the mode.
-BUILD_STOL = {False: 5e-4, True: 6e-3}
 LOSS_RTOL = {False: 3e-4, True: 3e-3}
-# bf16 grads: the two scan cores quantize their occupancy/cotangent
-# storage to bf16 at different points, so gradient agreement is the
-# bf16 class times band-edge amplification; the loss VALUES still agree
-# to ~1e-4 and the f32 cases pin the tight bound.
+# bf16 occupancies are rounded to bf16 on the way out (~4e-3 relative), and
+# bf16 gradients carry that times band-edge amplification; the f32 cases
+# pin the tight bound.
 GRAD_STOL = {False: 3e-3, True: 3e-2}
 # The e2e arm compares TWO independently-quantized bf16 pipelines (the
 # band-native fused stage 2 vs the materialized [B, T, K, C] logits path,
-# which gathers and ADDS am_p + lm_p in bf16 before its own lattice) —
-# each rounds d_am at structurally different points, so their agreement
-# is a multiple of the single-pipeline class.  Measured on-chip (r5,
-# seed 5): bf16 e2e dam 0.005-0.034 (tidy bf16-ulp multiples of the max),
-# and the WORST case re-run with identical inputs at f32 agrees to
-# 8.7e-4 — quantization divergence, not math.  f32 e2e keeps the tight
-# bound and pins correctness.
+# which gathers and ADDS am_p + lm_p in bf16 before its own lattice), each
+# rounding d_am at structurally different points, so their agreement is a
+# multiple of the single-pipeline class.  f32 e2e keeps the tight bound
+# and pins correctness.
 E2E_GRAD_STOL = {False: 3e-3, True: 6e-2}
-TIE_EPS = 1e-3      # window-score gap below which argmax flips are legit
 
 
 def scaled_err(a, b):
-    a = np.asarray(a, np.float32)
-    b = np.asarray(b, np.float32)
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
     return float(np.max(np.abs(a - b)) / max(float(np.max(np.abs(b))), 1e-20))
 
 
-def finite_scaled_err(a, b):
-    a = np.asarray(a, np.float32)
-    b = np.asarray(b, np.float32)
-    mask = np.isfinite(a) & np.isfinite(b)
-    if bool(np.any(np.isfinite(a) != np.isfinite(b))):
-        return float("inf")
-    if not mask.any():
-        return 0.0
-    scale = max(float(np.max(np.abs(b[mask]))), 1e-20)
-    return float(np.max(np.abs(a[mask] - b[mask])) / scale)
+def rel_err(a, b):
+    a, b = float(a), float(b)
+    return abs(a - b) / max(abs(b), 1e-20)
 
 
 def draw(rng):
@@ -101,7 +82,7 @@ def draw(rng):
     T = max(T, S + 3)
     rnnt_type = str(rng.choice(["regular", "modified", "constrained"]))
     # constrained needs s_range >= 2 (width-1 bands are provably
-    # infeasible and now raise; see lattice.get_rnnt_logprobs_pruned)
+    # infeasible and raise; see lattice.get_rnnt_logprobs_pruned)
     min_sr = 1 if rnnt_type == "modified" else 2
     s_range = int(rng.integers(min_sr, min(S + 1, 8) + 1)) if S >= min_sr else min_sr
     s_range = max(min_sr, min(s_range, S))
@@ -126,135 +107,118 @@ def draw(rng):
                 syms=syms, bnd=bnd)
 
 
-def window_scores(gy, gx, K):
-    """Repair-free window scores [S1-K+1, B, T] (the argmax objective)."""
-    S1, B, T = gy.shape
-    gy32 = np.asarray(gy, np.float32)
-    gx32 = np.asarray(gx, np.float32)[:, :, :T]
-    if K == 1:
-        blk = gy32
+def draw_e2e(rng):
+    case = draw(rng)
+    case["delay_penalty"] = float(rng.choice([0.02, 0.1, 0.3]))
+    case["smoothed"] = bool(rng.integers(0, 2))
+    if case["smoothed"]:
+        case["lm_scale"] = float(rng.choice([0.0, 0.1, 0.25]))
+        case["am_scale"] = float(rng.choice([0.0, 0.1, 0.2]))
     else:
-        cs = np.concatenate([np.zeros((1, B, T), np.float32),
-                             np.cumsum(gy32, axis=0)], axis=0)
-        blk = cs[K:] - cs[: S1 - K + 1]
-    px_pad = np.concatenate([np.zeros((1, B, T), np.float32), gx32], axis=0)
-    return blk - px_pad[: S1 - K + 1]
+        case["lm_scale"] = case["am_scale"] = 0.0
+    return case
 
 
-def run_case(case, idx):
+def shrink(case, B, T, S, s_range_max):
+    """Cut a drawn case down to at most (B, T, S) in place (for quick runs
+    on the CPU), keeping its boundaries and s_range valid."""
+    B = min(B, case["B"])
+    T = min(T, case["T"])
+    S = min(S, case["S"])
+    case["am"] = case["am"][:B, :T]
+    case["lm"] = case["lm"][:B, :S + 1]
+    case["syms"] = case["syms"][:B, :S]
+    bnd = case["bnd"][:B].copy()
+    bnd[:, 2] = np.clip(bnd[:, 2], 2 if S >= 2 else 1, S)
+    bnd[:, 3] = np.clip(bnd[:, 3], bnd[:, 2] + 2, T)
+    case["bnd"] = bnd
+    case["B"], case["T"], case["S"] = B, T, S
+    min_sr = 1 if case["rnnt_type"] == "modified" else 2
+    case["s_range"] = max(min_sr, min(case["s_range"], s_range_max, S))
+    return case
+
+
+def _inputs(case):
     am = jnp.asarray(case["am"])
     lm = jnp.asarray(case["lm"])
     if case["bf16"]:
         am, lm = am.astype(jnp.bfloat16), lm.astype(jnp.bfloat16)
-    symbols = jnp.asarray(case["syms"])
-    boundary = jnp.asarray(case["bnd"])
-    blank, K, rnnt_type = case["blank"], case["s_range"], case["rnnt_type"]
     ldt = jnp.bfloat16 if case["bf16"] else None
-    cfg = {k: case[k] for k in
-           ("B", "T", "S", "C", "rnnt_type", "s_range", "bf16", "ragged",
-            "blank")}
+    return am, lm, jnp.asarray(case["syms"]), jnp.asarray(case["bnd"]), ldt
+
+
+def _cfg(case, idx, keys):
+    cfg = {k: case[k] for k in keys}
     cfg["case"] = idx
+    return cfg
+
+
+def run_case(case, idx):
+    """The component arm (module docstring).  Returns (cfg, errs, failure
+    or None)."""
+    am, lm, symbols, boundary, ldt = _inputs(case)
+    blank, K, rnnt_type = case["blank"], case["s_range"], case["rnnt_type"]
+    bf = case["bf16"]
+    cfg = _cfg(case, idx, ("B", "T", "S", "C", "rnnt_type", "s_range", "bf16",
+                           "ragged", "blank"))
     errs = {}
 
-    # --- build ------------------------------------------------------------
-    def build(a, l, force):
-        lattice.set_lattice_build_impl(force)
-        try:
-            # fresh lambda per call -> fresh trace under the forced global
-            return jax.jit(lambda a_, l_: lattice.get_rnnt_logprobs_rows(
-                l_, a_, symbols, blank, rnnt_type, boundary))(a, l)
-        finally:
-            lattice.set_lattice_build_impl("auto")
-
-    px_p, py_p = build(am, lm, "fused")
-    px_x, py_x = build(am, lm, "xla")
-    errs["build_px"] = finite_scaled_err(px_p, px_x)
-    errs["build_py"] = finite_scaled_err(py_p, py_x)
-    bf = case["bf16"]
-    if errs["build_px"] > BUILD_STOL[bf] or errs["build_py"] > BUILD_STOL[bf]:
-        return cfg, errs, "build parity failure"
-
-    # --- stage 1 (same rows both impls) -----------------------------------
-    px_rows, py_rows = px_x, py_x
-    if ldt is not None:
-        px_rows, py_rows = px_rows.astype(ldt), py_rows.astype(ldt)
-
-    def stage1(px, py, impl_is_pallas):
-        return recursion.mutual_information_rows(
-            px, py, boundary, calc_gradients=True,
-            impl="pallas" if impl_is_pallas else "xla",
-        )
-
-    s_p, (gx_p, gy_p) = jax.jit(stage1, static_argnums=(2,))(px_rows, py_rows, True)
-    s_x, (gx_x, gy_x) = jax.jit(stage1, static_argnums=(2,))(px_rows, py_rows, False)
-    errs["stage1_score"] = scaled_err(s_p, s_x)
-    errs["stage1_gx"] = scaled_err(gx_p, gx_x)
-    errs["stage1_gy"] = scaled_err(gy_p, gy_x)
+    # --- stage 1: the default recursion vs float64, same rows --------------
+    base = "modified" if rnnt_type == "constrained" else rnnt_type
+    px_rows, py_rows = jax.jit(
+        lambda a, l: get_rnnt_logprobs_rows(
+            l, a, symbols, blank, base, boundary, out_dtype=ldt)
+    )(am, lm)
+    if rnnt_type == "constrained":
+        px_rows = px_rows + py_rows[1:]
+    s_d, (gx_d, gy_d) = jax.jit(
+        lambda a, b: recursion.mutual_information_rows(
+            a, b, boundary, calc_gradients=True)
+    )(px_rows, py_rows)
+    with jax.enable_x64(True):
+        s_x, (gx_x, gy_x) = jax.jit(
+            lambda a, b: recursion.mutual_information_rows(
+                a, b, boundary, calc_gradients=True, impl="xla")
+        )(px_rows.astype(jnp.float64), py_rows.astype(jnp.float64))
+        s_x, gx_x, gy_x = (np.asarray(v) for v in (s_x, gx_x, gy_x))
+    errs["stage1_score"] = scaled_err(s_d, s_x)
+    errs["stage1_gx"] = scaled_err(gx_d.astype(jnp.float32), gx_x)
+    errs["stage1_gy"] = scaled_err(gy_d.astype(jnp.float32), gy_x)
     if (errs["stage1_score"] > LOSS_RTOL[bf] or errs["stage1_gx"] > GRAD_STOL[bf]
             or errs["stage1_gy"] > GRAD_STOL[bf]):
         return cfg, errs, "stage1 parity failure"
 
-    # --- ranges ------------------------------------------------------------
-    # (a) RAW argmax, tie-aware: a float near-tie may pick either window;
-    #     only a flip with a real score gap is a failure.
-    from fast_rnnt_tpu.ops.kernels.ranges import window_argmax_rows_pallas
+    # --- ranges: device vs host over the device's occupancies --------------
+    gx_f = gx_d.astype(jnp.float32)
+    gy_f = gy_d.astype(jnp.float32)
+    non_tie, repair_diffs, ranges = ranges_vs_host(gx_f, gy_f, boundary, K)
+    errs["ranges_non_tie_diffs"] = non_tie
+    errs["ranges_repair_diffs"] = repair_diffs
+    if non_tie:
+        return cfg, errs, "window argmax failure beyond tie tolerance"
+    if repair_diffs:
+        return cfg, errs, "device repair != host repair of the same starts"
 
-    gx_f = jax.lax.stop_gradient(gx_x)
-    gy_f = jax.lax.stop_gradient(gy_x)
-    raw_p = np.asarray(jax.jit(
-        lambda a, b: window_argmax_rows_pallas(b, a, K))(gx_f, gy_f))
-    raw_x = np.asarray(jax.jit(
-        lambda a, b: pruning._window_argmax(a, b, K, impl="xla"))(gx_f, gy_f))
-    raw_diff = raw_p != raw_x
-    errs["raw_argmax_diff_frac"] = float(raw_diff.mean())
-    if raw_diff.any():
-        scores = window_scores(gy_x, gx_x, K)
-        bad = 0
-        for b, t in np.argwhere(raw_diff):
-            gap = abs(scores[raw_p[b, t], b, t] - scores[raw_x[b, t], b, t])
-            if gap > TIE_EPS:
-                bad += 1
-        errs["raw_non_tie_diffs"] = bad
-        if bad:
-            return cfg, errs, "raw window-argmax failure beyond tie tolerance"
+    # --- stage 2: default vs float64 XLA core, same ranges -----------------
+    ranges = jnp.asarray(ranges)
 
-    # (b) the fused in-kernel repair must EXACTLY equal the XLA repair
-    #     applied to the kernel's own raw starts (deterministic int math)
-    adjust_step = 2 if rnnt_type != "regular" else K
-    r_p = np.asarray(pruning.get_rnnt_prune_ranges_rows(
-        gx_x, gy_x, boundary, K, impl="pallas"))
-    t_idx = np.arange(raw_p.shape[1])[None, :]
-    bnd = np.asarray(boundary)
-    mask = t_idx < (bnd[:, 3][:, None] - 1)
-    pad = np.maximum(bnd[:, 2][:, None] - K + 1, 0)
-    want = np.where(mask, raw_p, pad)
-    want = np.asarray(pruning.adjust_pruning_lower_bound(
-        jnp.asarray(want), adjust_step))
-    want = want[:, :, None] + np.arange(K, dtype=np.int32)
-    if (r_p != want).any():
-        errs["repair_diffs"] = int((r_p != want).sum())
-        return cfg, errs, "fused repair != XLA repair on identical raw starts"
-
-    # --- stage 2 (same ranges both impls) ----------------------------------
-    ranges = jnp.asarray(r_p)
-
-    def stage2(a, l, impl_is_pallas):
-        loss = frt.rnnt_loss_pruned_simple(
+    def stage2(a, l):
+        return frt.rnnt_loss_pruned_simple(
             l, a, symbols, ranges, blank, boundary, rnnt_type,
-            reduction="sum", impl="pallas" if impl_is_pallas else "xla",
-            lattice_dtype=ldt,
+            reduction="sum", lattice_dtype=ldt,
         )
-        return loss
 
-    v_p, g_p = jax.jit(jax.value_and_grad(stage2, argnums=(0, 1)),
-                       static_argnums=(2,))(am, lm, True)
-    v_x, g_x = jax.jit(jax.value_and_grad(stage2, argnums=(0, 1)),
-                       static_argnums=(2,))(am, lm, False)
-    if not (np.isfinite(float(v_p)) and np.isfinite(float(v_x))):
-        return cfg, errs, f"non-finite stage2 loss {float(v_p)} {float(v_x)}"
-    errs["stage2_loss"] = abs(float(v_p) - float(v_x)) / max(abs(float(v_x)), 1e-20)
-    errs["stage2_dam"] = scaled_err(g_p[0], g_x[0])
-    errs["stage2_dlm"] = scaled_err(g_p[1], g_x[1])
+    v_d, (ga_d, gl_d) = jax.jit(jax.value_and_grad(stage2, argnums=(0, 1)))(am, lm)
+    _, p_x, ga_x, gl_x = xla_float64_reference(
+        am, lm, symbols, boundary, ranges[:, :, 0], ranges.shape[2],
+        rnnt_type, blank=blank, lattice_dtype=ldt, weights=(0.0, 1.0),
+    )
+    v_x = float(np.sum(p_x))
+    if not (np.isfinite(float(v_d)) and np.isfinite(v_x)):
+        return cfg, errs, f"non-finite stage2 loss {float(v_d)} {v_x}"
+    errs["stage2_loss"] = rel_err(v_d, v_x)
+    errs["stage2_dam"] = scaled_err(ga_d.astype(jnp.float32), ga_x)
+    errs["stage2_dlm"] = scaled_err(gl_d.astype(jnp.float32), gl_x)
     if (errs["stage2_loss"] > LOSS_RTOL[bf] or errs["stage2_dam"] > GRAD_STOL[bf]
             or errs["stage2_dlm"] > GRAD_STOL[bf]):
         return cfg, errs, "stage2 parity failure"
@@ -262,35 +226,19 @@ def run_case(case, idx):
 
 
 def run_case_e2e(case, idx):
-    """END-TO-END arm (round 4, VERDICT r3 item 8): the fused two-stage
-    pipelines (rnnt_loss_simple_pruned / rnnt_loss_smoothed_pruned) with
-    delay_penalty != 0 and smoothing scales, against the MATERIALIZED
-    reference-shaped pipeline — stage-1 loss w/ occupancy grads ->
-    get_rnnt_prune_ranges -> do_rnnt_pruning -> rnnt_loss_pruned on the
-    [B, T, K, C] pruned logits (the reference's own test recipe,
-    simple_rnnt_loss_test.py:108-143) — compared on loss AND input
-    gradients, on hardware.
-
-    Pruning-range tie flips between the two stage-1 graphs are legitimate
-    (float near-ties), so the materialized stage 2 consumes the FUSED
-    pipeline's ranges; the raw range agreement is recorded as info.
-    """
-    am = jnp.asarray(case["am"])
-    lm = jnp.asarray(case["lm"])
-    if case["bf16"]:
-        am, lm = am.astype(jnp.bfloat16), lm.astype(jnp.bfloat16)
-    symbols = jnp.asarray(case["syms"])
-    boundary = jnp.asarray(case["bnd"])
+    """The end-to-end arm (module docstring).  Near-tie flips between the
+    two stage-1 graphs may legitimately pick different ranges, so the
+    materialized stage 2 consumes the FUSED pipeline's ranges; how often
+    the materialized stage 1's own ranges agree is recorded as info."""
+    am, lm, symbols, boundary, ldt = _inputs(case)
     blank, K, rnnt_type = case["blank"], case["s_range"], case["rnnt_type"]
-    ldt = jnp.bfloat16 if case["bf16"] else None
     bf = case["bf16"]
     dp = case["delay_penalty"]
     smoothed = case["smoothed"]
     lsc, asc = case["lm_scale"], case["am_scale"]
-    cfg = {k: case[k] for k in
-           ("B", "T", "S", "C", "rnnt_type", "s_range", "bf16", "ragged",
-            "blank", "delay_penalty", "smoothed", "lm_scale", "am_scale")}
-    cfg["case"] = idx
+    cfg = _cfg(case, idx, ("B", "T", "S", "C", "rnnt_type", "s_range", "bf16",
+                           "ragged", "blank", "delay_penalty", "smoothed",
+                           "lm_scale", "am_scale"))
     cfg["arm"] = "e2e"
     errs = {}
 
@@ -313,18 +261,20 @@ def run_case_e2e(case, idx):
     )(am, lm)
     ranges_f = jax.lax.stop_gradient(ranges_f)
 
-    def materialized(a, l):
+    def stage1(a, l, reduction):
         if smoothed:
-            s1, _ = frt.rnnt_loss_smoothed(
+            return frt.rnnt_loss_smoothed(
                 l, a, symbols, blank, lm_only_scale=lsc, am_only_scale=asc,
                 boundary=boundary, rnnt_type=rnnt_type, delay_penalty=dp,
-                reduction="sum", calc_gradients=True,
+                reduction=reduction, calc_gradients=True,
             )
-        else:
-            s1, _ = frt.rnnt_loss_simple(
-                l, a, symbols, blank, boundary, rnnt_type,
-                delay_penalty=dp, reduction="sum", calc_gradients=True,
-            )
+        return frt.rnnt_loss_simple(
+            l, a, symbols, blank, boundary, rnnt_type,
+            delay_penalty=dp, reduction=reduction, calc_gradients=True,
+        )
+
+    def materialized(a, l):
+        s1, _ = stage1(a, l, "sum")
         am_p, lm_p = frt.do_rnnt_pruning(a, l, ranges_f)
         p2 = frt.rnnt_loss_pruned(
             am_p + lm_p, symbols, ranges_f, blank, boundary, rnnt_type,
@@ -332,30 +282,16 @@ def run_case_e2e(case, idx):
         )
         return 0.5 * s1 + p2
 
-    v_m, g_m = jax.jit(
-        jax.value_and_grad(materialized, argnums=(0, 1))
-    )(am, lm)
+    v_m, g_m = jax.jit(jax.value_and_grad(materialized, argnums=(0, 1)))(am, lm)
 
-    # info: how often the materialized stage-1's own ranges agree
-    if smoothed:
-        _, (gx, gy) = frt.rnnt_loss_smoothed(
-            lm, am, symbols, blank, lm_only_scale=lsc, am_only_scale=asc,
-            boundary=boundary, rnnt_type=rnnt_type, delay_penalty=dp,
-            reduction="none", calc_gradients=True,
-        )
-    else:
-        _, (gx, gy) = frt.rnnt_loss_simple(
-            lm, am, symbols, blank, boundary, rnnt_type, delay_penalty=dp,
-            reduction="none", calc_gradients=True,
-        )
+    _, (gx, gy) = jax.jit(lambda a, l: stage1(a, l, "none"))(am, lm)
     ranges_m = frt.get_rnnt_prune_ranges(gx, gy, boundary, K)
     errs["ranges_diff_frac"] = float(
-        np.mean(np.asarray(ranges_m) != np.asarray(ranges_f))
-    )
+        np.mean(np.asarray(ranges_m) != np.asarray(ranges_f)))
 
     if not (np.isfinite(float(v_f)) and np.isfinite(float(v_m))):
         return cfg, errs, f"non-finite e2e loss {float(v_f)} {float(v_m)}"
-    errs["e2e_loss"] = abs(float(v_f) - float(v_m)) / max(abs(float(v_m)), 1e-20)
+    errs["e2e_loss"] = rel_err(v_f, v_m)
     errs["e2e_dam"] = scaled_err(g_f[0], g_m[0])
     errs["e2e_dlm"] = scaled_err(g_f[1], g_m[1])
     if (errs["e2e_loss"] > LOSS_RTOL[bf] or errs["e2e_dam"] > E2E_GRAD_STOL[bf]
@@ -364,44 +300,36 @@ def run_case_e2e(case, idx):
     return cfg, errs, None
 
 
-def draw_e2e(rng):
-    case = draw(rng)
-    case["delay_penalty"] = float(rng.choice([0.02, 0.1, 0.3]))
-    case["smoothed"] = bool(rng.integers(0, 2))
-    if case["smoothed"]:
-        case["lm_scale"] = float(rng.choice([0.0, 0.1, 0.25]))
-        case["am_scale"] = float(rng.choice([0.0, 0.1, 0.2]))
-    else:
-        case["lm_scale"] = case["am_scale"] = 0.0
-    return case
-
-
-N_E2E = max(12, N_CASES // 2)
+def sweep(n_cases, n_e2e, seed, log=print):
+    """Draw and run ``n_cases`` component cases, then ``n_e2e`` end-to-end
+    cases; one JSON line per case through ``log``.  Raises AssertionError
+    on the first failure."""
+    rng = np.random.default_rng(seed)
+    arms = [(draw, run_case)] * n_cases + [(draw_e2e, run_case_e2e)] * n_e2e
+    for i, (draw_fn, run_fn) in enumerate(arms):
+        cfg, errs, fail = run_fn(draw_fn(rng), i)
+        row = {**cfg, **{k: (float(f"{v:.4g}") if isinstance(v, float) else v)
+                         for k, v in errs.items()}}
+        if fail:
+            log(json.dumps({"FAIL": fail, **row}))
+            raise AssertionError(f"{fail}: {row}")
+        log(json.dumps(row))
 
 
 def main():
-    rng = np.random.default_rng(SEED)
-    print(json.dumps({"device": str(jax.devices()[0]), "cases": N_CASES,
-                      "e2e_cases": N_E2E, "seed": SEED}), flush=True)
-    for i in range(N_CASES):
-        case = draw(rng)
-        cfg, errs, fail = run_case(case, i)
-        row = {**cfg, **{k: (round(v, 7) if isinstance(v, float) else v)
-                         for k, v in errs.items()}}
-        if fail:
-            print(json.dumps({"FAIL": fail, **row}), flush=True)
-            raise SystemExit(1)
-        print(json.dumps(row), flush=True)
-    for i in range(N_E2E):
-        case = draw_e2e(rng)
-        cfg, errs, fail = run_case_e2e(case, N_CASES + i)
-        row = {**cfg, **{k: (round(v, 7) if isinstance(v, float) else v)
-                         for k, v in errs.items()}}
-        if fail:
-            print(json.dumps({"FAIL": fail, **row}), flush=True)
-            raise SystemExit(1)
-        print(json.dumps(row), flush=True)
-    print(json.dumps({"result": "ALL_PASS", "cases": N_CASES + N_E2E}),
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("n_cases", type=int, nargs="?", default=24)
+    ap.add_argument("seed", type=int, nargs="?", default=0)
+    args = ap.parse_args()
+    n_e2e = max(12, args.n_cases // 2)
+    print(json.dumps({"device": str(jax.devices()[0]), "cases": args.n_cases,
+                      "e2e_cases": n_e2e, "seed": args.seed}), flush=True)
+    try:
+        sweep(args.n_cases, n_e2e, args.seed,
+              log=lambda line: print(line, flush=True))
+    except AssertionError:
+        raise SystemExit(1)
+    print(json.dumps({"result": "ALL_PASS", "cases": args.n_cases + n_e2e}),
           flush=True)
 
 

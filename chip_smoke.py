@@ -14,6 +14,9 @@ B=30, T=1000, S=100, C=500, s_range=5, ragged boundaries, the gradient of
   pipeline  fp32 and bf16, regular and modified: compile, run, finite
             losses and gradients
   parity    the compiled parity gate (utils/parity.py) for each rnnt type
+  fuzz      a few cases of benchmarks/fuzz_onchip.py at random shapes:
+            stage by stage against float64 and host references, and the
+            fused pipelines against the materialized recipe
   gpu tests tests/test_gpu_kernels.py (the tests that need a card)
 
 ``--four`` runs only ``parallel.data_parallel`` of the same step at B=120
@@ -181,6 +184,16 @@ def phase_parity():
         enforce_parity(parity)
 
 
+def phase_fuzz(n_cases=4, n_e2e=4, seed=1):
+    sys.path.insert(0, os.path.join(ROOT, "benchmarks"))
+    import fuzz_onchip
+
+    t0 = time.perf_counter()
+    fuzz_onchip.sweep(n_cases, n_e2e, seed, log=lambda line: log(f"  {line}"))
+    log(f"[fuzz] {n_cases} component + {n_e2e} end-to-end cases, seed "
+        f"{seed}, passed ({time.perf_counter() - t0:.1f}s)")
+
+
 def phase_gpu_tests():
     import pytest
 
@@ -258,6 +271,7 @@ def main():
         phase_kernels()
         phase_pipeline()
         phase_parity()
+        phase_fuzz()
         phase_gpu_tests()
         log("[models] not run: the models extra (flax, orbax) is not "
             "installed beside the card")

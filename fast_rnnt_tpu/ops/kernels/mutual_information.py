@@ -10,7 +10,7 @@ batch-partitioned JAX calls.  To build ahead of time::
 
     python -m fast_rnnt_tpu.ops.kernels.mutual_information
 
-The kernels have no interpret mode: on a host without a CUDA device the
+The kernels have no interpret mode: on a host without a Hopper GPU the
 recursion uses the XLA scan core, and asking for ``impl="cuda"`` there is
 an error.  Their arithmetic is the XLA core's, which stays beside them as
 the reference (tests compare the two on the card).
@@ -37,6 +37,7 @@ __all__ = [
     "build",
     "cuda_available",
     "forward_rows_cuda",
+    "is_hopper",
     "supports",
 ]
 
@@ -53,17 +54,27 @@ _lock = threading.Lock()
 _registered = False
 
 
+def is_hopper(device) -> bool:
+    """True for a CUDA device of compute capability 9.x, the one target
+    the library is built for (``sm_90a``).  Other CUDA GPUs and ROCm
+    devices, whose platform is also "gpu", are not."""
+    if getattr(device, "platform", None) != "gpu":
+        return False
+    return str(getattr(device, "compute_capability", "")).split(".")[0] == "9"
+
+
 def cuda_available() -> bool:
-    """True when JAX's default backend is a CUDA GPU."""
-    return jax.default_backend() == "gpu"
+    """True when JAX's default device is a Hopper GPU (:func:`is_hopper`)."""
+    return is_hopper(jax.devices()[0])
 
 
 def supports(px_rows: jax.Array, py_rows: jax.Array) -> bool:
-    """Shapes and dtypes the kernels cover: float32 or bfloat16 storage and
-    at most MAX_ROWS lattice rows (S + 1)."""
+    """Shapes and dtypes the kernels cover: float32 or bfloat16 storage
+    (each of px and py, since both are read as float32) and at most
+    MAX_ROWS lattice rows (S + 1)."""
     return (
-        px_rows.dtype == py_rows.dtype
-        and px_rows.dtype in (jnp.float32, jnp.bfloat16)
+        px_rows.dtype in (jnp.float32, jnp.bfloat16)
+        and py_rows.dtype in (jnp.float32, jnp.bfloat16)
         and py_rows.shape[0] <= MAX_ROWS
     )
 
@@ -117,9 +128,11 @@ def _register() -> None:
         if _registered:
             return
         if not cuda_available():
+            d = jax.devices()[0]
             raise RuntimeError(
-                'impl="cuda" needs a CUDA GPU as the default JAX backend; '
-                f"this process has {jax.default_backend()!r}"
+                'impl="cuda" needs a CUDA GPU of compute capability 9.x '
+                "(Hopper) as the default JAX device; this process has "
+                f"{d.platform!r} ({d.device_kind})"
             )
         lib = ctypes.cdll.LoadLibrary(build())
         for name, symbol in _TARGETS.items():

@@ -62,17 +62,23 @@ def _apply_delay_penalty(
     delay_penalty: float,
 ) -> jax.Array:
     """Add ``((t_end - 1)/2 - t) * delay_penalty`` to px (k2 issue #955;
-    reference rnnt_loss.py:305-321)."""
+    reference rnnt_loss.py:305-321).
+
+    The penalty is computed and added in at least float32 and the sum is
+    rounded once to px's dtype: in bfloat16 the frame index is inexact
+    past 256 and ``delay_penalty`` itself rounds (0.3 -> 0.30078), which
+    put a systematic error of several nats on a bf16 lattice's loss."""
     if delay_penalty <= 0.0:
         return px
     B, S, T0 = px.shape
     T = T0 if rnnt_type != "regular" else T0 - 1
+    dt = jnp.promote_types(px.dtype, jnp.float32)
     if boundary is None:
-        offset = jnp.full((B, 1, 1), (T - 1) / 2.0, dtype=px.dtype)
+        offset = jnp.full((B, 1, 1), (T - 1) / 2.0, dtype=dt)
     else:
-        offset = ((boundary[:, 3].astype(px.dtype) - 1.0) / 2.0)[:, None, None]
-    penalty = offset - jnp.arange(T0, dtype=px.dtype)[None, None, :]
-    return px + penalty * delay_penalty
+        offset = ((boundary[:, 3].astype(dt) - 1.0) / 2.0)[:, None, None]
+    penalty = offset - jnp.arange(T0, dtype=dt)[None, None, :]
+    return (px.astype(dt) + penalty * delay_penalty).astype(px.dtype)
 
 
 def _apply_delay_penalty_rows(
@@ -86,14 +92,26 @@ def _apply_delay_penalty_rows(
         return px_rows
     S, B, T0 = px_rows.shape
     T = T0 if rnnt_type != "regular" else T0 - 1
+    dt = jnp.promote_types(px_rows.dtype, jnp.float32)
     if boundary is None:
-        offset = jnp.full((1, 1, 1), (T - 1) / 2.0, dtype=px_rows.dtype)
+        offset = jnp.full((1, 1, 1), (T - 1) / 2.0, dtype=dt)
     else:
-        offset = ((boundary[:, 3].astype(px_rows.dtype) - 1.0) / 2.0)[
-            None, :, None
-        ]
-    penalty = offset - jnp.arange(T0, dtype=px_rows.dtype)[None, None, :]
-    return px_rows + penalty * delay_penalty
+        offset = ((boundary[:, 3].astype(dt) - 1.0) / 2.0)[None, :, None]
+    penalty = offset - jnp.arange(T0, dtype=dt)[None, None, :]
+    return (px_rows.astype(dt) + penalty * delay_penalty).astype(px_rows.dtype)
+
+
+def _px_storage_dtype(lattice_dtype, delay_penalty: float):
+    """Storage dtype of px in the lattice-dtype mode (the recursion still
+    computes in at least float32).  px stays float32 under a delay
+    penalty: the penalty reaches ``delay_penalty * T / 2`` in magnitude,
+    and bf16 rounding of px + penalty grows with it (0.25 nats per arc at
+    T=577, delay_penalty=0.3) where py's stays ~0.01."""
+    return lattice_dtype if delay_penalty <= 0.0 else None
+
+
+def _store(x: jax.Array, dtype) -> jax.Array:
+    return x if dtype is None else x.astype(dtype)
 
 
 def _reduce(negated_loss: jax.Array, reduction: Optional[str]) -> jax.Array:
@@ -397,9 +415,8 @@ def rnnt_loss_pruned_simple(
         py_banded = band_mask_rows_smajor(py_rows, lo, K)
         px_rows = px_rows + py_banded[1:]
     px_rows = _apply_delay_penalty_rows(px_rows, boundary, rnnt_type, delay_penalty)
-    if lattice_dtype is not None:
-        px_rows = px_rows.astype(lattice_dtype)
-        py_rows = py_rows.astype(lattice_dtype)
+    px_rows = _store(px_rows, _px_storage_dtype(lattice_dtype, delay_penalty))
+    py_rows = _store(py_rows, lattice_dtype)
     bnd = _normalize_boundary(boundary, am.shape[0], symbols.shape[1], am.shape[1])
     negated_loss = mutual_information_rows(
         px_rows, py_rows, bnd, lo=lo, s_range=K, calc_gradients=False, impl=impl
@@ -474,13 +491,13 @@ def rnnt_loss_simple_pruned(
     px_simple_rows = _apply_delay_penalty_rows(
         px_simple_rows, boundary, rnnt_type, delay_penalty
     )
-    if lattice_dtype is not None:
-        # bf16 mixed-precision mode: the lattice's stored copies are
-        # narrow (the casts fuse into the assembly writes) while every
-        # recursion computes in at least f32, at ~1e-3 relative loss error
-        px_simple_rows = px_simple_rows.astype(lattice_dtype)
-        px0_rows = px0_rows.astype(lattice_dtype)
-        py_rows = py_rows.astype(lattice_dtype)
+    # bf16 mixed-precision mode: the lattice's stored copies are narrow
+    # (the casts fuse into the assembly writes) while every recursion
+    # computes in at least f32, at ~1e-3 relative loss error
+    px_dtype = _px_storage_dtype(lattice_dtype, delay_penalty)
+    px_simple_rows = _store(px_simple_rows, px_dtype)
+    px0_rows = _store(px0_rows, px_dtype)
+    py_rows = _store(py_rows, lattice_dtype)
     with jax.named_scope("stage1_recursion"):
         neg_simple, (gx_rows, gy_rows) = mutual_information_rows(
             px_simple_rows, py_rows, boundary, calc_gradients=True, impl=impl
@@ -554,9 +571,8 @@ def rnnt_loss_smoothed_pruned(
     px_sm_rows = _apply_delay_penalty_rows(
         px_sm_rows, boundary, rnnt_type, delay_penalty
     )
-    if lattice_dtype is not None:
-        px_sm_rows = px_sm_rows.astype(lattice_dtype)
-        py_sm_rows = py_sm_rows.astype(lattice_dtype)
+    px_sm_rows = _store(px_sm_rows, _px_storage_dtype(lattice_dtype, delay_penalty))
+    py_sm_rows = _store(py_sm_rows, lattice_dtype)
     neg_smoothed, (gx_rows, gy_rows) = mutual_information_rows(
         px_sm_rows, py_sm_rows, boundary, calc_gradients=True, impl=impl
     )
@@ -584,9 +600,8 @@ def rnnt_loss_smoothed_pruned(
         py_banded = band_mask_rows_smajor(py_rows, lo, K)
         px_rows = px_rows + py_banded[1:]
     px_rows = _apply_delay_penalty_rows(px_rows, boundary, rnnt_type, delay_penalty)
-    if lattice_dtype is not None:
-        px_rows = px_rows.astype(lattice_dtype)
-        py_rows = py_rows.astype(lattice_dtype)
+    px_rows = _store(px_rows, _px_storage_dtype(lattice_dtype, delay_penalty))
+    py_rows = _store(py_rows, lattice_dtype)
     neg_pruned = mutual_information_rows(
         px_rows, py_rows, boundary, lo=lo, s_range=K,
         calc_gradients=False, impl=impl,

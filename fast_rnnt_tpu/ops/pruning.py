@@ -9,8 +9,8 @@ Equivalent to the pruning pipeline of the reference
   do_rnnt_pruning               rnnt_loss.py:763-812
 
 The reference needed a custom CUDA Blelloch scan for the running min; here
-that is ``lax.associative_scan`` (see ops/recursion.py:cummin), so this
-whole module is pure XLA.
+that is ``lax.cummin`` (see ops/recursion.py:monotonic_lower_bound for why
+not an associative scan), so this whole module is pure XLA.
 """
 
 from __future__ import annotations

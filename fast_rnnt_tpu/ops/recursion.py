@@ -30,7 +30,7 @@ Two implementations share one contract:
   * the GPU wavefront kernels (``impl="cuda"``,
     ops/kernels/mutual_information.cu): one block per utterance walks the
     lattice diagonals with the carry on chip, one launch per direction —
-    the reference's CUDA design.  The default on a CUDA GPU.
+    the reference's CUDA design.  The default on a Hopper GPU.
 
 Differences from the reference (deliberate, documented):
   * ``boundary`` is OPTIONAL (defaults to [0, 0, S, T]); the reference op
@@ -300,13 +300,14 @@ def _backward_rows_xla(
         step, init, (s_idx, px_pad2, py_t, p_t, p_next_t), reverse=True
     )
     # Trim the s = S px row (identically zero: px_pad2[S] = -inf).
-    return pxg_rows[:S].astype(store_dt), pyg_rows.astype(store_dt)
+    return pxg_rows[:S].astype(store_dt), pyg_rows.astype(py_rows.dtype)
 
 
 # -----------------------------------------------------------------------------
 # Implementation dispatch.  One rule: the GPU wavefront kernels
 # (ops/kernels/mutual_information.cu, impl="cuda") when JAX's default
-# backend is a CUDA GPU and the kernels cover the dtype and shape; the XLA
+# device is a CUDA GPU of compute capability 9.x (the kernels are built
+# for sm_90a) and the kernels cover the dtype and shape; the XLA
 # scan core above otherwise.  impl="xla" forces the scan core; impl="cuda"
 # forces the kernels and raises where they cannot run.
 # -----------------------------------------------------------------------------
@@ -440,11 +441,10 @@ def _mi_rows_with_grads_bwd(K, impl, res, cots):
     # a seed of 1 in the forward pass can simply be rescaled here — the same
     # "compute grads in the forward op" trick as tf_fast_rnnt_op.cc:89-111.
     gx_rows, gy_rows, boundary, lo = res
-    ans_grad = cots[0]
-    scale = ans_grad[None, :, None].astype(gx_rows.dtype)
+    scale = cots[0][None, :, None]
     return (
-        scale * gx_rows,
-        scale * gy_rows,
+        (scale * gx_rows).astype(gx_rows.dtype),
+        (scale * gy_rows).astype(gy_rows.dtype),
         _float0_like(boundary),
         _f0_or_none(lo),
     )
@@ -581,8 +581,8 @@ def mutual_information_recursion(
         occupancy outputs are NOT differentiable — cotangents flowing into
         them are dropped; only the scores output propagates gradients.
       impl: lattice implementation: "xla" (associative-scan core),
-        "cuda" (GPU wavefront kernels; an error without a CUDA GPU), or
-        None/"auto" ("cuda" on a GPU for the dtypes and shapes it covers,
+        "cuda" (GPU wavefront kernels; an error without a Hopper GPU), or
+        None/"auto" ("cuda" on a Hopper GPU for the dtypes and shapes it covers,
         "xla" otherwise).  f64 inputs run on "xla" (explicitly requesting
         "cuda" with f64 raises); bf16/f16 inputs are treated as narrow
         STORAGE over an f32 in-register recursion by every impl.

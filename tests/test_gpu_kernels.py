@@ -1,6 +1,6 @@
 """The CUDA recursion kernels on the card, against the XLA scan core and
 the float64 loop oracle.  They have no interpret mode, so every test here
-needs a CUDA GPU and skips elsewhere; on a card run them with
+needs a Hopper GPU and skips elsewhere; on a card run them with
 
     FRT_TEST_PLATFORM=cuda python -m pytest -m gpu tests/test_gpu_kernels.py
 
@@ -13,8 +13,10 @@ import pytest
 
 import fast_rnnt_tpu as frt
 from fast_rnnt_tpu.ops import recursion
+from fast_rnnt_tpu.ops.kernels import mutual_information as gpu
 
 from .oracle import mi_loop
+from .test_pruning import check_ranges_at_bench_shape
 from .test_recursion import _random_boundary, _random_pxpy
 
 pytestmark = pytest.mark.gpu
@@ -22,8 +24,8 @@ pytestmark = pytest.mark.gpu
 
 @pytest.fixture
 def cuda():
-    if jax.default_backend() != "gpu":
-        pytest.skip("needs a CUDA GPU: the FFI kernels have no interpret mode")
+    if not gpu.cuda_available():
+        pytest.skip("needs a Hopper GPU: the FFI kernels have no interpret mode")
 
 
 def _band(rng, B, S, T, K):
@@ -45,27 +47,31 @@ def _both(px, py, bnd, lo=None, K=0):
     return out["cuda"], out["xla"]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "mixed"])
 @pytest.mark.parametrize("banded", [False, True])
 @pytest.mark.parametrize("modified", [False, True])
 def test_kernel_matches_xla_core(cuda, modified, banded, dtype):
     """Same inputs, two evaluation orders: scores within 1e-5 relative,
-    occupancies within 1e-4 absolute at this width."""
+    occupancies within 1e-4 absolute at this width.  "mixed" is a float32
+    px beside a bfloat16 py (the lattice-dtype mode under a delay
+    penalty)."""
     rng = np.random.default_rng(1)
     B, S, T, K = 4, 9, 41, 3
     px, py = _random_pxpy(rng, B, S, T, modified=modified, neg_inf_frac=0.1)
     bnd = jnp.asarray(_random_boundary(rng, B, S, T))
-    px_r = jnp.moveaxis(jnp.asarray(px), 1, 0).astype(dtype)
-    py_r = jnp.moveaxis(jnp.asarray(py), 1, 0).astype(dtype)
+    px_dt = "float32" if dtype == "mixed" else dtype
+    py_dt = "bfloat16" if dtype == "mixed" else dtype
+    px_r = jnp.moveaxis(jnp.asarray(px), 1, 0).astype(px_dt)
+    py_r = jnp.moveaxis(jnp.asarray(py), 1, 0).astype(py_dt)
     lo = _band(rng, B, S, T, K) if banded else None
     (s_c, gx_c, gy_c), (s_x, gx_x, gy_x) = _both(px_r, py_r, bnd, lo, K if banded else 0)
     np.testing.assert_array_equal(np.isfinite(s_c), np.isfinite(s_x))
     fin = np.isfinite(s_x)
     np.testing.assert_allclose(s_c[fin], s_x[fin], rtol=1e-5)
     # bf16 occupancies are rounded once on the way out
-    atol = 1e-4 if dtype == "float32" else 8e-3
-    np.testing.assert_allclose(gx_c, gx_x, atol=atol)
-    np.testing.assert_allclose(gy_c, gy_x, atol=atol)
+    tol = {"float32": 1e-4, "bfloat16": 8e-3}
+    np.testing.assert_allclose(gx_c, gx_x, atol=tol[px_dt])
+    np.testing.assert_allclose(gy_c, gy_x, atol=tol[py_dt])
 
 
 def test_kernel_matches_oracle_nonzero_begin(cuda):
@@ -122,3 +128,11 @@ def test_default_is_kernel_and_pipeline_matches_xla(cuda):
     # gradients reach ~50 here: two float32 evaluation orders
     for a, b in zip(g_d, g_x):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("regular", [True, False])
+def test_ranges_match_host_on_card(cuda, regular):
+    """Regression: XLA for CUDA once compiled the range repair (two chained
+    reverse associative-scan minimums, S=100, step 5) to windows near
+    4,000, making every regular pruned loss inf on the card."""
+    check_ranges_at_bench_shape(regular)

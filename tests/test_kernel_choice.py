@@ -3,6 +3,8 @@ and the parts of the kernel path that run without a card: the Python
 wrapper's shapes and band handling, and the batch-partitioning wrapper
 that runs the opaque kernel call per shard."""
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -53,15 +55,18 @@ def test_cuda_without_gpu_raises():
 
 
 def test_uncovered_inputs_and_unknown_impl():
-    """The kernels cover float32/bfloat16 storage and at most MAX_ROWS
-    rows: auto picks the XLA core for anything else, an explicit "cuda"
-    raises, and an unknown implementation name raises."""
+    """The kernels cover float32/bfloat16 storage (px and py each; a
+    float32 px beside a bfloat16 py is the lattice-dtype mode under a
+    delay penalty) and at most MAX_ROWS rows: auto picks the XLA core for
+    anything else, an explicit "cuda" raises, and an unknown
+    implementation name raises."""
     rng = np.random.default_rng(2)
     px, py, bnd = _rows(rng, 2, 3, 7)
     assert gpu.supports(px, py)
     assert gpu.supports(px.astype(jnp.bfloat16), py.astype(jnp.bfloat16))
     assert not gpu.supports(px.astype(jnp.float16), py.astype(jnp.float16))
-    assert not gpu.supports(px, py.astype(jnp.bfloat16))
+    assert gpu.supports(px, py.astype(jnp.bfloat16))
+    assert not gpu.supports(px, py.astype(jnp.float16))
     wide = jax.ShapeDtypeStruct((gpu.MAX_ROWS, 2, 7), jnp.float32)
     assert not gpu.supports(
         jax.ShapeDtypeStruct((gpu.MAX_ROWS, 2, 8), jnp.float32),
@@ -182,3 +187,34 @@ def test_kernel_path_traces_under_shard_map(monkeypatch):
     traced = jax.jit(f).trace(lm, am, symbols)
     text = str(traced.jaxpr)
     assert "frt_mi_forward" in text and "frt_mi_backward" in text
+
+
+@pytest.mark.parametrize(
+    "platform, cc, want",
+    [
+        ("gpu", "9.0", True),
+        ("gpu", "8.0", False),   # A100
+        ("gpu", "8.9", False),   # L4
+        ("gpu", "10.0", False),  # newer than the sm_90a build
+        ("gpu", "gfx90a", False),  # ROCm reports platform "gpu" too
+        ("gpu", None, False),
+        ("cpu", None, False),
+    ],
+)
+def test_kernel_default_only_on_hopper(platform, cc, want, monkeypatch):
+    """The library is built for sm_90a only, so the kernels are the
+    default on a compute-capability 9.x CUDA device and nowhere else; on
+    any other GPU the default is the XLA core, and impl="cuda" raises."""
+    dev = SimpleNamespace(platform=platform, device_kind="test device")
+    if cc is not None:
+        dev.compute_capability = cc
+    assert gpu.is_hopper(dev) is want
+    rng = np.random.default_rng(6)
+    px, py, bnd = _rows(rng, 2, 3, 7)
+    monkeypatch.setattr(jax, "devices", lambda *a, **k: [dev])
+    assert gpu.cuda_available() is want
+    assert recursion._use_cuda(None, px, py) is want
+    if not want:
+        monkeypatch.setattr(gpu, "_registered", False)
+        with pytest.raises(RuntimeError, match="compute capability 9"):
+            gpu._register()

@@ -13,7 +13,9 @@ from fast_rnnt_tpu import (
     get_rnnt_prune_ranges,
     rnnt_loss,
     rnnt_loss_pruned,
+    rnnt_loss_pruned_simple,
     rnnt_loss_simple,
+    rnnt_loss_simple_pruned,
     rnnt_loss_smoothed,
 )
 
@@ -722,3 +724,64 @@ def test_constrained_s_range_1_raises():
         lm, am, symbols, 0, 1, boundary, rnnt_type="modified",
         reduction="none")
     assert np.all(np.isfinite(np.asarray(out[0])))
+
+
+@pytest.mark.parametrize("layout", ["rows", "bst"])
+def test_delay_penalty_on_bf16_lattice_rounds_once(layout):
+    """On a bfloat16 lattice the delay penalty is computed in float32 and
+    the sum rounded once into px: frame indices past 256 and the scale 0.3
+    stay exact, so each entry is within half a bf16 ulp of the exact sum.
+    (Computed in bf16, 0.3 rounded to 0.30078 and t=257 to 256: a
+    systematic error of several nats on a pruned loss, found by the fuzz
+    sweep's end-to-end arm.)"""
+    from fast_rnnt_tpu.ops import losses
+
+    rng = np.random.default_rng(41)
+    B, S, T = 2, 3, 400
+    t_end = np.array([T, T - 57])
+    boundary = jnp.asarray(np.stack(
+        [np.zeros(B, np.int32), np.zeros(B, np.int32), np.full(B, S, np.int32),
+         t_end.astype(np.int32)], axis=1))
+    px = jnp.asarray((rng.normal(size=(B, S, T + 1)) * 5).astype(np.float32))
+    px = px.astype(jnp.bfloat16)
+    penalty = ((t_end[:, None, None] - 1) / 2.0 - np.arange(T + 1)) * 0.3
+    want = np.asarray(px, np.float64) + penalty
+    if layout == "rows":
+        got = losses._apply_delay_penalty_rows(
+            jnp.moveaxis(px, 1, 0), boundary, "regular", 0.3)
+        got = jnp.moveaxis(got, 0, 1)
+    else:
+        got = losses._apply_delay_penalty(px, boundary, "regular", 0.3)
+    assert got.dtype == jnp.bfloat16
+    half_ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 8)
+    assert np.all(np.abs(np.asarray(got, np.float64) - want) <= half_ulp * 1.001)
+
+
+@pytest.mark.parametrize("rnnt_type", ["regular", "modified"])
+def test_bf16_lattice_with_delay_penalty_tracks_f32(rnnt_type):
+    """lattice_dtype=bfloat16 with a delay penalty at T=400: px, which
+    carries a penalty up to 60 nats here, stays float32 and only py is
+    narrowed, so the simple loss and the pruned loss (on the same ranges)
+    stay within 0.1 nats of the float32 lattice's per utterance.  Storing
+    px + penalty in bf16, with the penalty computed in bf16, was 0.3 and
+    8.5 nats off."""
+    rng = np.random.default_rng(43)
+    B, T, S, C, K = 2, 400, 30, 40, 4
+    am = jnp.asarray(rng.normal(size=(B, T, C)).astype(np.float32)).astype(jnp.bfloat16)
+    lm = jnp.asarray(rng.normal(size=(B, S + 1, C)).astype(np.float32)).astype(jnp.bfloat16)
+    symbols = jnp.asarray(rng.integers(1, C, size=(B, S)).astype(np.int32))
+    boundary = jnp.asarray(np.array([[0, 0, S, T], [0, 0, S - 5, T - 60]], np.int32))
+    simple, pruned, ranges = rnnt_loss_simple_pruned(
+        lm, am, symbols, 0, K, boundary, rnnt_type, delay_penalty=0.3,
+        reduction="none", lattice_dtype=jnp.bfloat16,
+    )
+    simple32, _, _ = rnnt_loss_simple_pruned(
+        lm, am, symbols, 0, K, boundary, rnnt_type, delay_penalty=0.3,
+        reduction="none",
+    )
+    pruned32 = rnnt_loss_pruned_simple(
+        lm, am, symbols, ranges, 0, boundary, rnnt_type, delay_penalty=0.3,
+        reduction="none",
+    )
+    np.testing.assert_allclose(np.asarray(simple), np.asarray(simple32), atol=0.1, rtol=0)
+    np.testing.assert_allclose(np.asarray(pruned), np.asarray(pruned32), atol=0.1, rtol=0)

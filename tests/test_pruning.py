@@ -205,3 +205,41 @@ def test_window_argmax_k1_exact_no_drift():
         np.testing.assert_array_equal(
             got, _window_argmax_np(gx, gy, 1), err_msg=f"S={S} T={T}"
         )
+
+
+def check_ranges_at_bench_shape(regular):
+    """get_rnnt_prune_ranges_rows and adjust_pruning_lower_bound, jitted on
+    the default device at the benchmark's shape (B=30, T=1000, S=100,
+    s_range=5: the repair steps by 5 for regular lattices), against
+    utils/parity.host_prune_ranges and the numpy repair.  Occupancies sit
+    on a 1/4 grid, so every window sum is exact and ties break to the
+    first maximum on both sides: the two must agree exactly."""
+    import jax
+
+    from fast_rnnt_tpu import get_rnnt_prune_ranges_rows
+    from fast_rnnt_tpu.utils.parity import host_prune_ranges
+
+    rng = np.random.default_rng(29)
+    B, T, S, K = 30, 1000, 100, 5
+    T1 = T + 1 if regular else T
+    gx = np.round(rng.random((S, B, T1)) * 4).astype(np.float32) / 4
+    gy = np.round(rng.random((S + 1, B, T)) * 4).astype(np.float32) / 4
+    se = rng.integers(S // 2, S + 1, size=B).astype(np.int32)
+    te = rng.integers(T // 2, T + 1, size=B).astype(np.int32)
+    boundary = np.stack([np.zeros(B, np.int32), np.zeros(B, np.int32), se, te], 1)
+    got = np.asarray(jax.jit(get_rnnt_prune_ranges_rows, static_argnums=3)(
+        jnp.asarray(gx), jnp.asarray(gy), jnp.asarray(boundary), K))
+    _, raw, want = host_prune_ranges(gx, gy, boundary, K)
+    np.testing.assert_array_equal(raw, _window_argmax_np(gx, gy, K))
+    np.testing.assert_array_equal(got, want)
+
+    step = K if regular else 2
+    starts = rng.integers(0, S - K + 2, size=(B, T)).astype(np.int32)
+    got = np.asarray(jax.jit(adjust_pruning_lower_bound, static_argnums=1)(
+        jnp.asarray(starts), step))
+    np.testing.assert_array_equal(got, _adjust_np(starts, step))
+
+
+@pytest.mark.parametrize("regular", [True, False])
+def test_ranges_match_host_at_bench_shape(regular):
+    check_ranges_at_bench_shape(regular)

@@ -128,3 +128,42 @@ def test_pruned_loss_decreases_with_wider_windows():
             )
         )
     assert all(a >= b - 1e-2 for a, b in zip(losses, losses[1:])), losses
+
+
+def _fuzz_module():
+    import importlib.util
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "fuzz_onchip", os.path.join(root, "benchmarks", "fuzz_onchip.py"))
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["fuzz_onchip"] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("i", range(3))
+def test_component_fuzz_cpu_cases(i):
+    """Cases of the fuzz sweep's component arm (benchmarks/fuzz_onchip.py)
+    cut to CPU size: stage 1 vs a float64 recursion, the ranges vs the host
+    restatement (tie-aware), stage 2 vs a float64 lattice, random shapes
+    and rnnt_types.  The full sweep runs on the card."""
+    mod = _fuzz_module()
+    rng = np.random.default_rng(3 + i)
+    case = mod.shrink(mod.draw(rng), B=4, T=96, S=24, s_range_max=24)
+    cfg, errs, fail = mod.run_case(case, i)
+    assert fail is None, (fail, cfg, errs)
+
+
+@pytest.mark.parametrize("i", range(3))
+def test_e2e_fuzz_cpu_cases(i):
+    """Cases of the fuzz sweep's end-to-end arm: the fused
+    rnnt_loss_{simple,smoothed}_pruned with delay_penalty and smoothing
+    scales vs the materialized reference-shaped pipeline, on the CPU."""
+    mod = _fuzz_module()
+    rng = np.random.default_rng(7 + i)
+    case = mod.shrink(mod.draw_e2e(rng), B=3, T=80, S=12, s_range_max=6)
+    cfg, errs, fail = mod.run_case_e2e(case, i)
+    assert fail is None, (fail, cfg, errs)
